@@ -20,24 +20,17 @@
 // atomics per block.  Design against that bound:
 //   * a grid-stride loop with coalesced loads, 4 rows per thread in flight
 //     (the loads of a step are issued before its adds);
-//   * per-lane accumulators in shared memory: slot g of lane l lives at
-//     [g * 32 + l], so the 32 lanes of a warp always add to 32 different
-//     addresses, whatever their segment ids.  Few live groups (TPC-H Q1
-//     has 4, Q6 one) then cost no more than many: the adds never conflict
-//     inside a warp, and warps of the block meet on an address only by
-//     chance (the shared atomics resolve that).  No warp collective runs
-//     per row, so the cost does not grow with the number of distinct ids;
-//   * at the end each block sums its 32 lane columns per slot and adds the
-//     totals with one global 64-bit atomicAdd per non-empty slot into
-//     outputs the caller zeroed.
-// Shared memory: domain * 32 * (8 + 4) bytes, 48 KiB at domain 128.  Row
-// counts are 32-bit per (slot, lane, block): below 2^32 rows per block.
+//   * per-lane accumulators in shared memory (seg_accum.cuh): the adds
+//     never conflict inside a warp, no warp collective runs per row, so the
+//     cost does not grow with the number of distinct ids (TPC-H Q1 has 4
+//     live groups, Q6 one);
+//   * one global 64-bit atomicAdd per non-empty slot and block at the end.
 
-#include <cuda_runtime.h>
+#include "seg_accum.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;
+using seg_accum::kLanes;
 constexpr int kUnroll = 4;
 
 template <typename SidT>
@@ -47,13 +40,7 @@ __global__ void seg_sum64_kernel(const SidT* __restrict__ sid,
                                  unsigned long long* __restrict__ sums,
                                  unsigned long long* __restrict__ counts) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* s_sum = smem;                            // [domain][32]
-  unsigned* s_cnt = (unsigned*)(smem + (size_t)domain * kLanes);  // [domain][32]
-  for (int i = threadIdx.x; i < domain * kLanes; i += blockDim.x) {
-    s_sum[i] = 0ull;
-    s_cnt[i] = 0u;
-  }
-  __syncthreads();
+  const seg_accum::Acc acc = seg_accum::init(smem, domain);
 
   const int lane = threadIdx.x % kLanes;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -73,24 +60,10 @@ __global__ void seg_sum64_kernel(const SidT* __restrict__ sid,
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-      if (s[k] >= 0 && s[k] < domain) {
-        atomicAdd(&s_sum[s[k] * kLanes + lane], v[k]);
-        atomicAdd(&s_cnt[s[k] * kLanes + lane], 1u);
-      }
+      if (s[k] >= 0 && s[k] < domain) seg_accum::add(acc, s[k], lane, v[k]);
     }
   }
-  __syncthreads();
-  for (int g = threadIdx.x; g < domain; g += blockDim.x) {
-    unsigned long long tot = 0ull, cnt = 0ull;
-    for (int l = 0; l < kLanes; ++l) {
-      tot += s_sum[g * kLanes + l];
-      cnt += s_cnt[g * kLanes + l];
-    }
-    if (cnt != 0ull) {
-      atomicAdd(&sums[g], tot);
-      atomicAdd(&counts[g], cnt);
-    }
-  }
+  seg_accum::flush(acc, domain, sums, counts);
 }
 
 }  // namespace
@@ -105,8 +78,7 @@ extern "C" int seg_sum64_launch(const void* sid, int sid_bytes,
   if (domain < 1 || domain > 128 || n < 0 || blocks < 1 || threads < 32 ||
       threads % 32)
     return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)domain * kLanes *
-                       (sizeof(unsigned long long) + sizeof(unsigned));
+  const size_t shmem = seg_accum::shmem_bytes(domain);
   cudaStream_t st = (cudaStream_t)stream;
   auto* out_s = (unsigned long long*)sums;
   auto* out_c = (unsigned long long*)counts;

@@ -26,11 +26,17 @@ Kept from the reference's design:
   at a default, and the host re-lowers with the measured total when it
   overflows (memoized per plan, on disk in the port's own memo file).
 
-Not ported yet (raise ``Unsupported``): every IR node outside TPC-H Q1/Q6's
-set, the scatter and sorted segment-reduction modes, SPMD over a device
-mesh, and the lowering paths that need the op-at-a-time executor, date
-arithmetic or string functions.  There is no fallback executor: a plan the
-fragment rejects raises ``Unsupported``.
+* unique-build equi-joins keep the probe side's rows at their capacity and
+  gather the build side's columns (direct-address table, or sort + binary
+  search); a build side that turns out non-unique is flagged on the device
+  and re-lowered as an expanding join.
+
+Not ported yet (raise ``Unsupported``): the IR nodes outside TPC-H Q1-Q6,
+Q19 and Q20's set (expanding joins, distinct aggregates, CASE, date
+extraction, renames, ...), SPMD over a device mesh, and the lowering paths
+that need the op-at-a-time executor, date arithmetic or string functions.
+There is no fallback executor: a plan the fragment rejects raises
+``Unsupported``.
 """
 
 from __future__ import annotations
@@ -67,10 +73,10 @@ _I64_MAX = np.int64(np.iinfo(np.int64).max)
 # error codes >= this encode "join build side <ordinal> was non-unique":
 # the host re-lowers that join as an expanding join and retries
 _ERR_DUP_BASE = 16
-#: histogram-grouping domain cap.  With scatter-mode segment reductions
-#: (one .at[].add per aggregate, ~140ms at 8M rows on v5e) the dense
-#: strategy stays cheaper than the device sort far beyond the old 1M
-#: gate; slot arrays at 16M are 128 MB int64 - well inside HBM.
+#: histogram-grouping domain cap (the reference's; part of the IR
+#: contract).  With scatter-mode segment reductions (one scatter per
+#: aggregate) the dense strategy serves domains far beyond the one-hot
+#: bound; slot arrays at 16M are 128 MB int64.
 _DENSE_DOMAIN_MAX = 1 << 24
 #: initial group-output capacity bucket (grown by count-then-retry when
 #: ngroups overflows it)
@@ -84,12 +90,9 @@ _GROUP_OUT_CAP0 = 1 << 16
 _COMPACT_MIN_CAP = 1 << 17
 _COMPACT_CAP0 = 1 << 19
 
-#: segment count at or below which grouped aggregation uses a fused
-#: masked one-hot broadcast-reduce instead of sort-based reduction.
-#: TPU scatter-add serializes (~20x slower than the one-hot form at 6M
-#: rows on v5e, and s64 scatters at multi-M rows can fault the worker);
-#: the one-hot reduce is the VPU-friendly shape XLA fuses without
-#: materializing the cap x seg intermediate.
+#: segment count at or below which the reference's grouped aggregation
+#: uses its one-hot form (here: integer sums through the seg_sum64
+#: kernel); above it both packages scatter (_SegReduce).
 _ONEHOT_MAX = 128
 
 #: largest build-side capacity that still uses the direct-address
@@ -1533,9 +1536,7 @@ class Lowering:
         ir, pt = self.expr(e.arg, penv)
         if not pt.is_str or pt.sdict is None:
             raise Unsupported("LIKE over non-dict value")
-        # port: restores `from ..ops.strfuncs import
-        # _like_mask_vectorized, like_regex`
-        raise Unsupported("LIKE: ops/strfuncs.py not ported yet")
+        from ..ops.strfuncs import _like_mask_vectorized, like_regex
         caseless = getattr(e, "caseless", False)
         flags = re.DOTALL | (re.IGNORECASE if caseless else 0)
         lut = None
@@ -1677,32 +1678,39 @@ def _irem(a, b):
 
 class _SegReduce:
     """Segmented reduction over [0, seg) slots (the reference's BATgroup*
-    aggregation loops, gdk/gdk_aggr.c:900), one-hot mode only: seg <=
-    _ONEHOT_MAX.  sid holds the segment id in [0, seg) for contributing
-    rows and seg for excluded rows.
+    aggregation loops, gdk/gdk_aggr.c:900).  sid holds the segment id in
+    [0, seg) for contributing rows and seg for excluded rows.  Two modes,
+    picked by segment count as the reference picks them:
 
-    Integer sums go through the ``seg_sum64`` kernel (plain version on a
-    CPU tensor).  Float sums and extrema scatter into seg + 1 slots, so
-    the (cap, seg) one-hot matrix that XLA fuses away is never built.  The
-    reference's scatter mode (seg > _ONEHOT_MAX) and sorted mode are not
-    ported yet."""
+    * one-hot (seg <= _ONEHOT_MAX): integer sums go through the
+      ``seg_sum64`` kernel (plain version on a CPU tensor).
+    * scatter (more slots): integer sums are one ``index_add_`` each.
+
+    Float sums, extrema and first indices scatter into seg + 1 slots in
+    both modes (the spare slot takes the excluded rows and is cut off), so
+    the (cap, seg) one-hot matrix that XLA fuses away is never built.
+    Scattered float sums add in an order that changes from run to run.
+    The reference's third mode (reductions in sorted order by prefix
+    scans) has no counterpart: the sort group-by assigns ids and reduces
+    over them in one of these two modes."""
 
     def __init__(self, sid, seg: int):
         self.seg = int(seg)
-        if self.seg > _ONEHOT_MAX:
-            raise Unsupported(f"scatter-mode segment reduction "
-                              f"({self.seg} > {_ONEHOT_MAX} slots) not "
-                              f"ported yet")
+        self.onehot = self.seg <= _ONEHOT_MAX
         self.sid = sid
+        self._index = None
 
     def _idx(self):
-        return torch.where((self.sid >= 0) & (self.sid < self.seg),
-                           self.sid, self.seg).long()
+        if self._index is None:
+            self._index = torch.where(
+                (self.sid >= 0) & (self.sid < self.seg), self.sid,
+                self.seg).long()
+        return self._index
 
     def sum(self, vals, dtype=None):
         """Per-segment sum; vals must be 0 outside the contributing set."""
         dt = _tdt(dtype) if dtype is not None else vals.dtype
-        if not dt.is_floating_point:
+        if self.onehot and not dt.is_floating_point:
             # exact: the int64 sum wraps like the reference's sum in dt
             sums, _cnt = seg_sum64(self.sid, vals.contiguous(),
                                    domain=self.seg)
@@ -1717,6 +1725,14 @@ class _SegReduce:
         out.scatter_reduce_(0, self._idx(), vals,
                             reduce="amin" if is_min else "amax")
         return out[: self.seg]
+
+    def first_index(self):
+        """Lowest contributing row index of each segment (-1 for empty
+        segments) - BATgroup extents."""
+        cap = self.sid.shape[0]
+        rows = torch.arange(cap, dtype=torch.int64, device=self.sid.device)
+        ext = self.extreme(rows, cap, True)
+        return torch.where(ext == cap, -1, ext)
 
 
 class _Interp:
@@ -1803,6 +1819,133 @@ class _Interp:
         env2 = {k: _gather_nil(a, perm, live_out) for k, a in env.items()}
         return env2, nlive, None, cap
 
+    def r_limit(self, ir):
+        _, cir, n, offset, out_cap = ir
+        env, count, mask, cap = self.rel(cir)
+        dev = self.device
+        if mask is None:
+            nlive = count
+            oids = torch.arange(out_cap, dtype=torch.int64,
+                                device=dev) + offset
+            oids = torch.where(oids < count, oids, -1)
+        else:
+            # oids[r] = index of the (offset+r+1)-th live row via one
+            # rank-indexed scatter-set (see _compact_oids); ranks before
+            # the offset or past out_cap land in the spare slot
+            live = self.live_of(cap, count, mask)
+            csum = torch.cumsum(live.to(torch.int64), 0)
+            nlive = csum[-1]
+            pos = csum - 1 - offset
+            pos = torch.where(live & (pos >= 0), pos, out_cap)
+            oids = _set_drop(out_cap, -1, pos, torch.arange(
+                cap, dtype=torch.int64, device=dev))
+        count2 = torch.clamp(nlive - offset, 0,
+                             out_cap if n is None else min(n, out_cap))
+        live_out = torch.arange(out_cap, device=dev) < count2
+        env2 = {k: _gather_nil(a, oids, live_out) for k, a in env.items()}
+        return env2, count2, None, out_cap
+
+    # joins ------------------------------------------------------------------
+    def _join_codes(self, keyspecs, env, live, cap, side: str):
+        """Evaluate one side's join keys -> (packed int64 code, valid).
+        valid excludes dead rows, nil keys and out-of-bounds values (a
+        probe value outside the build stats range cannot match).  Codes
+        stay int64: the reference's int32 narrowing serves the TPU's
+        sort."""
+        comb = None
+        valid = live
+        for a_ir, anil, b_ir, bnil, lo, span, is_str in keyspecs:
+            ir = a_ir if side == "l" else b_ir
+            mnil = anil if side == "l" else bnil
+            k = _bcast(self.ev(ir, env, live), cap)
+            if mnil and not is_str:
+                valid = valid & ~_nilm_arr(k)
+            k = k.to(torch.int64)
+            if span is not None:
+                c = k - lo
+                valid = valid & (c >= 0) & (c < span)
+                comb = c if comb is None else comb * span + c
+            else:
+                if is_str:
+                    valid = valid & (k >= 0)
+                comb = k
+        return comb, valid
+
+    def r_join(self, ir):
+        """Equi-join against a build side that matches each probe row at
+        most once.  Of duplicate build keys the lowest build row wins in
+        both strategies (scatter-min of row ids; stable sort + leftmost
+        binary search), so semi and anti joins, which tolerate duplicates,
+        see the reference's rows."""
+        (_, kind, lir, rir, keyspecs, strat, domain, uniq_check,
+         bfilter, extra, rkeys, ordinal) = ir
+        lenv, lcount, lmask, lcap = self.rel(lir)
+        renv, rcount, rmask, rcap = self.rel(rir)
+        dev = self.device
+        llive = self.live_of(lcap, lcount, lmask)
+        rlive = self.live_of(rcap, rcount, rmask)
+        if bfilter is not None:
+            rlive = rlive & _bcast(self.pv(bfilter, renv, rlive), rcap)
+        code_l, lvalid = self._join_codes(keyspecs, lenv, llive, lcap, "l")
+        code_r, rvalid = self._join_codes(keyspecs, renv, rlive, rcap, "r")
+
+        if strat == "dense":
+            # direct-address build (fetchjoin/hashjoin analog): invalid
+            # build rows go to the spare slot `domain`, which is cut off
+            rid = torch.arange(rcap, dtype=torch.int32, device=dev)
+            safe_r = torch.where(rvalid, code_r, domain)
+            tmin = torch.full((domain + 1,), rcap, dtype=torch.int32,
+                              device=dev)
+            tmin.scatter_reduce_(0, safe_r, rid, reduce="amin")
+            tmin = tmin[:domain]
+            if uniq_check:
+                tmax = torch.full((domain + 1,), -1, dtype=torch.int32,
+                                  device=dev)
+                tmax.scatter_reduce_(0, safe_r, rid, reduce="amax")
+                dup = (tmin < rcap) & (tmax[:domain] != tmin)
+                self.flag_rows(dup, _ERR_DUP_BASE + ordinal)
+            hit = tmin[torch.where(lvalid, code_l, 0)]
+            matched = lvalid & (hit < rcap)
+            rowid = torch.where(matched, hit, -1).long()
+        else:
+            # sort + binary-search probe (mergejoin analog); invalid rows
+            # carry the sentinel and sort last
+            sent = torch.iinfo(torch.int64).max
+            kr = torch.where(rvalid, code_r, sent)
+            ks, rs = torch.sort(kr, stable=True)
+            if uniq_check:
+                dup = (ks[1:] == ks[:-1]) & (ks[1:] != sent)
+                self.flag_rows(dup, _ERR_DUP_BASE + ordinal)
+            kl = torch.where(lvalid, code_l, sent)
+            pos = torch.searchsorted(ks, kl, right=False).clamp(
+                0, rcap - 1)
+            matched = lvalid & (ks[pos] == kl) & (kl != sent)
+            rowid = torch.where(matched, rs[pos], -1)
+
+        def masked(m):
+            return m if lmask is None else (lmask & m)
+
+        if kind in ("semi", "anti") and extra is None:
+            return lenv, lcount, masked(matched if kind == "semi"
+                                        else ~matched), lcap
+
+        menv = dict(lenv)
+        ok = rowid >= 0
+        for k in rkeys:
+            menv[k] = _gather_nil(renv[k], rowid, ok)
+        if extra is not None:
+            matched = matched & _bcast(self.pv(extra, menv, llive), lcap)
+            if kind in ("semi", "anti"):
+                return lenv, lcount, masked(matched if kind == "semi"
+                                            else ~matched), lcap
+            if kind != "inner":
+                for k in rkeys:
+                    a = menv[k]
+                    menv[k] = torch.where(matched, a, _nil_const(a.dtype))
+        if kind == "inner":
+            return menv, lcount, masked(matched), lcap
+        return menv, lcount, lmask, lcap     # left outer
+
     def r_groupby_dense(self, ir):
         """Histogram grouping over a combined small domain
         (gdk/gdk_group.c:20-60 strategies 4-5): aggregates land in domain
@@ -1854,9 +1997,13 @@ class _Interp:
             for (key, _e), v in zip(key_outs, vals):
                 env2[key] = v
         if fetch_keys:
-            # keys dropped by a join's functional dependency: joins are
-            # not ported yet, so neither is their extents gather
-            raise Unsupported("FD-fetched group keys not ported yet")
+            # FD-dropped keys: gather from each group's representative
+            # row (BATgroup extents; the value is well-defined per group
+            # because the key is functionally determined)
+            ext_rank = compact(red.first_index(), -1)
+            for key, e in fetch_keys:
+                arr = _bcast(self.ev(e, env, live), cap)
+                env2[key] = _gather_nil(arr, ext_rank, live_out)
         for key, spec in aggs:
             slot = self._agg_slots(spec, env, live, cap, red)
             if isinstance(slot, tuple):     # wide sum: (lo, hi) limbs
@@ -1866,6 +2013,67 @@ class _Interp:
             else:
                 env2[key] = compact(slot, _nil_const(slot.dtype))
         return env2, ng, None, out_cap
+
+    def _sort_ids(self, keys, live, cap):
+        """Per-row group ids via device sort (ops/group.py _sort_group):
+        (number of groups, id per original row in [0, ng), cap for dead
+        rows).  Ids follow the sorted key order; the sort is stable, so
+        the lowest row of a group is its first sorted element."""
+        dead = (~live).to(torch.int8)
+        perm = _lexsort([dead] + keys)
+        live_s = dead[perm] == 0
+        bound = torch.zeros(cap, dtype=torch.bool, device=self.device)
+        bound[:1] = True
+        for k in keys:
+            k_s = k[perm]
+            bound[1:] |= k_s[1:] != k_s[:-1]
+        gid_s = torch.cumsum((bound & live_s).to(torch.int64), 0) - 1
+        ng = torch.where(live_s, gid_s, -1).max() + 1
+        ids = torch.empty(cap, dtype=torch.int64, device=self.device)
+        ids[perm] = torch.where(live_s, gid_s, cap)
+        return ng, ids
+
+    def r_groupby_sort(self, ir):
+        """General grouping: device lexsort + boundary scan (replaces the
+        reference's hash strategies; gdk/gdk_group.c:1347 BATgroup).  The
+        sort only assigns group ids; the aggregates then reduce over those
+        ids as the dense strategy's do (the reference reduces in sorted
+        order with prefix scans instead, to spare the TPU its scatters)."""
+        _, cir, key_outs, sort_keys, aggs, out_cap, ordinal = ir
+        env, count, mask, cap = self.rel(cir)
+        live = self.live_of(cap, count, mask)
+        karrs = []
+        for e in sort_keys:
+            arr = _bcast(self.ev(e, env, live), cap)
+            if arr.dtype == torch.bool:
+                arr = arr.to(torch.int8)
+            elif arr.dtype.is_floating_point:
+                arr = sort_key(arr, False, None)
+            # else: grouping needs only a total order with nils grouped;
+            # raw integer/code order qualifies
+            karrs.append(arr)
+        ng, ids = self._sort_ids(karrs, live, cap)
+        red = _SegReduce(ids, cap)
+        env2 = {}
+        if key_outs:
+            ext = red.first_index()
+            live_out = torch.arange(cap, device=self.device) < ng
+            for key, e in key_outs:
+                arr = _bcast(self.ev(e, env, live), cap)
+                env2[key] = _gather_nil(arr, ext, live_out)
+        for key, spec in aggs:
+            slot = self._agg_slots(spec, env, live, cap, red)
+            if isinstance(slot, tuple):     # wide sum: (lo, hi) limbs
+                env2[key], env2[_hikey(key)] = slot
+            else:
+                env2[key] = slot
+        # outputs are rank-compacted in [0, ng): slice to the group
+        # bucket; ng overflow goes to the count-then-retry channel
+        eff = min(out_cap, cap)
+        if eff < cap:
+            self.exp_totals[ordinal] = ng
+            env2 = {k: v[:eff] for k, v in env2.items()}
+        return env2, ng, None, eff
 
     @staticmethod
     def _decode_dcode(code_ir, code, dt, ok):
@@ -1879,23 +2087,28 @@ class _Interp:
         elif kind == "dcode_bool":
             return ok & (code > 0) if dtype == torch.bool else \
                 torch.where(ok, code.to(dtype), _nil_const(dtype))
+        elif kind == "dcode_i8":
+            v = (code - 128).to(torch.int8)
         else:  # dcode_range
             v = (code + code_ir[2]).to(dtype)
         return torch.where(ok, v, _nil_const(dtype))
 
     def _dcode(self, code_ir, env, live, cap):
-        """Column -> code in [0, D) (ops/group.py _codes incl. nil slot).
-        int8 keys (dcode_i8, 256 slots) always exceed the one-hot bound,
-        so they wait for the scatter mode."""
+        """Column -> code in [0, D) (ops/group.py _codes incl. nil slot)."""
         kind = code_ir[0]
-        if kind not in ("dcode_str", "dcode_bool", "dcode_range"):
-            raise Unsupported(f"group code {kind} not ported yet")
         arr = _bcast(self.ev(code_ir[1], env, live), cap)
         if kind == "dcode_str":
             c = arr.to(torch.int64)
             return torch.where(c < 0, code_ir[2] - 1, c)
         if kind == "dcode_bool":
             return arr.to(torch.int64)
+        if kind == "dcode_i8":
+            return arr.to(torch.int64) + 128
+        if kind == "pcode_rangenil":
+            # sort-key packing slot for a nullable range: nil -> 0,
+            # value -> (v - lo) + 1 (nils-first group order)
+            return torch.where(_nilm_arr(arr), 0,
+                               arr.to(torch.int64) - code_ir[2] + 1)
         # dcode_range
         return arr.to(torch.int64) - code_ir[2]
 
@@ -1961,6 +2174,34 @@ class _Interp:
         v = np.asarray(np.dtype(ir[2]).type(ir[1]))
         return torch.as_tensor(v, device=self.device)
 
+    def e_packcode(self, ir, env, live):
+        """Mixed-radix pack of dense key codes into one int64 sort key
+        (exact mkey.bulk_rotate_xor_hash role, modules/mal/mkey.c)."""
+        cap = live.shape[0]
+        comb = None
+        for code_ir, d in ir[1]:
+            code = self._dcode(code_ir, env, live, cap)
+            comb = code if comb is None else comb * d + code
+        return comb
+
+    def e_whi(self, ir, env, live):
+        """High-limb order key of a wide sum: hi, with the lo nil
+        sentinel propagated so nil groups sort by the nulls rule."""
+        lo = env[ir[1]]
+        hi = env[ir[2]]
+        return torch.where(lo == _I64_MIN_PY, _I64_MIN_PY, hi)
+
+    def e_wnarrow(self, ir, env, live):
+        """Wide (int128-range) sum -> int64, exact fits-check.  The limb
+        invariant (lo in [0, 2^32), total = hi*2^32 + lo) makes the check
+        precise: the value fits int64 iff hi is in [-2^31, 2^31)."""
+        lo = env[ir[1]]
+        hi = env[ir[2]]
+        isnil = lo == _I64_MIN_PY
+        fits = (hi >= -(1 << 31)) & (hi < (1 << 31))
+        self.flag_rows(live & ~isnil & ~fits, 4)
+        return torch.where(isnil, _I64_MIN_PY, hi * (1 << 32) + lo)
+
     def e_iarith(self, ir, env, live):
         """Integer/decimal arithmetic with the reference's overflow and
         div-by-zero errors (gdk/gdk_calc_addsub.c ON_OVERFLOW; mirrors
@@ -2019,6 +2260,43 @@ class _Interp:
     # -- predicates -----------------------------------------------------------
     def pv(self, ir, env, live):
         return self._dispatch("p_", ir[0])(ir, env, live)
+
+    def p_and(self, ir, env, live):
+        parts = [self.pv(p, env, live) for p in ir[1]]
+        out = parts[0]
+        for p in parts[1:]:
+            out = out & p
+        return out
+
+    def p_or(self, ir, env, live):
+        parts = [self.pv(p, env, live) for p in ir[1]]
+        out = parts[0]
+        for p in parts[1:]:
+            out = out | p
+        return out
+
+    def p_cmp(self, ir, env, live):
+        _, op, a_ir, b_ir, anil, bnil, _dt = ir
+        a = self.ev(a_ir, env, live)
+        b = self.ev(b_ir, env, live)
+        out = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt,
+               "le": torch.le, "gt": torch.gt, "ge": torch.ge}[op](a, b)
+        if anil:
+            out = out & ~_nilm_arr(a)
+        if bnil:
+            out = out & ~_nilm_arr(b)
+        return out
+
+    def p_strpred(self, ir, env, live):
+        _, lut_i, a_ir = ir
+        lut = self.inputs[lut_i]
+        codes = self.ev(a_ir, env, live)
+        if lut.shape[0] == 0:
+            # empty dictionary (all-nil / empty column): nothing matches
+            return torch.zeros(codes.shape, dtype=torch.bool,
+                               device=self.device)
+        ok = codes >= 0
+        return lut[torch.where(ok, codes, 0).long()] & ok
 
     def p_rangesel(self, ir, env, live):
         """BATselect scan kernel (gdk/gdk_select.c:964 scan_sel; mirrors

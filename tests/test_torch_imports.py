@@ -20,6 +20,8 @@ def test_import_pulls_in_no_jax():
         "import monetdb_tpu_torch.exec.fragment\n"
         "import monetdb_tpu_torch.bench.tpch_load\n"
         "import monetdb_tpu_torch.bench.tpch_queries\n"
+        "import monetdb_tpu_torch.bench.tpch_oracle\n"
+        "import monetdb_tpu_torch.ops.strfuncs\n"
         "import monetdb_tpu_torch.ops.cuda_kernels\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'monetdb_tpu' or "
@@ -33,10 +35,12 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_source_imports_jax():
+    """No module of the package, and not chip_smoke.py, names jax or the
+    reference package in an import."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|monetdb_tpu)\b",
                      re.MULTILINE)
-    files = sorted(_PKG.rglob("*.py"))
-    assert len(files) > 20
+    files = sorted(_PKG.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+    assert len(files) > 22
     hits = [str(f.relative_to(_ROOT)) for f in files
             if pat.search(f.read_text())]
     assert not hits, hits

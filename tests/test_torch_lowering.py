@@ -22,8 +22,8 @@ from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
 from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 from monetdb_tpu_torch.sql import binder as TB  # noqa: E402
 
-#: queries slice A must lower exactly like the reference
-_MUST_LOWER = {1, 6}
+#: queries slices A and B must lower exactly like the reference
+_MUST_LOWER = {1, 2, 3, 4, 5, 6, 19, 20}
 
 
 @pytest.fixture(scope="module")
