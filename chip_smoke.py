@@ -31,17 +31,18 @@ Phases, one or more output lines each:
              and counts exactly; grouped_sum_limbs over the same codes with
              l_quantity and the shipdate mask must give sum_qty and the
              counts.
-6. slice   - Q1, Q6, Q2, Q3, Q4, Q5, Q19, Q20 through ``Engine.query``: one
-             cold and 5 warm runs each; rows equal to the oracle as ordered
-             lists (decimals, integers, strings, dates and counts exactly,
-             averages to rel 1e-12).  Prints per query the times, peak
-             device memory above the tables, seg_sum64 launches and
-             capacity retries.  Q1, Q4, Q5, Q6 and Q19 must launch
-             seg_sum64.
+6. slice   - all 22 TPC-H queries through ``Engine.query``: one cold and 5
+             warm runs each; rows equal to the oracle as ordered lists
+             (decimals, integers, strings, dates and counts exactly,
+             floats to rel 1e-12).  Prints per query the times, peak
+             device memory above the tables, seg_sum64 launches, and the
+             capacity and uniqueness retries (re-lowerings after an
+             overflowed bucket / a join build side found non-unique).  The
+             queries in MUST_LAUNCH must launch seg_sum64.
 7. profile - only with ``--profile``: per query, 5 warm runs under
              ``torch.profiler``: host wall, device busy time, kernels per
-             query, device idle share, top kernels by device time; and the
-             host's cost per eager op.
+             query, device idle share, host waits on the stream per query,
+             top kernels by device time; and the host's cost per eager op.
 
 The launch counts are set to 0 just before phases 5 and 6 and read just
 after.  Then one JSON line with each kernel's launches on its path, error,
@@ -57,6 +58,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -79,10 +82,13 @@ MAIN_SHAPE = (1 << 23, 12)
 #: rows (the reported time) and a ragged length
 FUSED_NS = (24_000_000, 6_001_215)
 FUSED_DOMAIN = 8
-SLICE_QUERIES = (1, 6, 2, 3, 4, 5, 19, 20)
-#: queries whose plan has a one-hot integer sum (Q2, Q3 and Q20 aggregate
-#: into more than 128 slots: scatter mode, no kernel)
-MUST_LAUNCH = (1, 4, 5, 6, 19)
+SLICE_QUERIES = (1, 6, 2, 3, 4, 5, 19, 20, 10, 18, 7, 8, 9, 11, 12, 13, 14,
+                 15, 16, 17, 21, 22)
+#: queries whose plan has a one-hot integer sum whatever the capacity memo
+#: holds (a scalar aggregate, or a group-by over a handful of dictionary
+#: codes); the others aggregate into more than 128 slots (scatter mode,
+#: no kernel) or only after a shrunk bucket re-lowered their group-by
+MUST_LAUNCH = (1, 4, 5, 6, 8, 12, 14, 17, 19, 22)
 WARM_RUNS = 5
 AVG_RTOL = 1e-12
 #: published peaks of one H100 SXM (NVIDIA's data sheet): device memory
@@ -321,9 +327,14 @@ def phase_load(dev):
          f"{li.col('l_quantity').data.device}; tables resident "
          f"{resident / 2**20:.1f} MiB")
     t0 = time.perf_counter()
-    want = {q: tpch_oracle.ORACLES[q](data) for q in SLICE_QUERIES}
-    _log(f"load: numpy oracle for Q{', Q'.join(map(str, SLICE_QUERIES))} "
-         f"{time.perf_counter() - t0:.2f} s")
+    want = {}
+    took = []
+    for q in SLICE_QUERIES:
+        t1 = time.perf_counter()
+        want[q] = tpch_oracle.ORACLES[q](data)
+        took.append(f"Q{q} {time.perf_counter() - t1:.1f}")
+    _log(f"load: numpy oracle for {len(want)} queries "
+         f"{time.perf_counter() - t0:.2f} s ({', '.join(took)})")
     return cat, resident, want
 
 
@@ -390,7 +401,7 @@ def phase_slice(dev, cat, resident: int, want: dict, entry: dict) -> Engine:
     for q in SLICE_QUERIES:
         torch.cuda.reset_peak_memory_stats(dev)
         before = CK.LAUNCHES["seg_sum64"]
-        retries = fragment.STATS["cap_retries"]
+        stats0 = dict(fragment.STATS)
         t0 = time.perf_counter()
         rows = list(eng.query(QUERIES[q]).rows)
         cold = time.perf_counter() - t0
@@ -416,10 +427,37 @@ def phase_slice(dev, cat, resident: int, want: dict, entry: dict) -> Engine:
              f"seg_sum64 launches {launched} "
              f"({launched // (1 + WARM_RUNS)} a run after retries); "
              f"cap_retries "
-             f"{fragment.STATS['cap_retries'] - retries}; peak device "
+             f"{fragment.STATS['cap_retries'] - stats0['cap_retries']}, "
+             f"uniq_retries "
+             f"{fragment.STATS['uniq_retries'] - stats0['uniq_retries']}, "
+             f"fragment runs "
+             f"{fragment.STATS['runs'] - stats0['runs']}; peak device "
              f"memory above the tables {peak / 2**20:.1f} MiB")
     entry["launches"] = CK.LAUNCHES["seg_sum64"]
     return eng
+
+
+def host_waits(eng: Engine, q: int):
+    """One warm run of query q with torch's sync debug mode on: (number of
+    times the host waited for the stream, how many of them inside the
+    plan's interpreter).  The interpreter's nodes must add none: a run
+    waits once for the error code, count and totals, and once for each
+    result array."""
+    in_plan = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        names = {f.name for f in traceback.extract_stack()}
+        in_plan.append(bool(names & {"_run_single", "_run_raw"}))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            list(eng.query(QUERIES[q]).rows)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return len(in_plan), sum(in_plan)
 
 
 def phase_profile(dev, eng: Engine) -> None:
@@ -441,6 +479,10 @@ def phase_profile(dev, eng: Engine) -> None:
             t0 = time.perf_counter()
             list(eng.query(QUERIES[q]).rows)
             plain.append(time.perf_counter() - t0)
+        n_waits, n_in_plan = host_waits(eng, q)
+        if n_in_plan:
+            raise AssertionError(f"Q{q}: {n_in_plan} host waits inside "
+                                 f"the interpreter")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -450,9 +492,15 @@ def phase_profile(dev, eng: Engine) -> None:
             wall = (time.perf_counter() - t0) / WARM_RUNS
         # device-side events only: an operator's row repeats the time of
         # the kernels it launched
+        averages = prof.key_averages()
         kernels = [(a.key, a.self_device_time_total, a.count)
-                   for a in prof.key_averages()
-                   if a.device_type == DeviceType.CUDA]
+                   for a in averages if a.device_type == DeviceType.CUDA]
+        # the profiler's own count of the runtime calls behind the waits
+        host = {a.key: a.count / WARM_RUNS for a in averages
+                if a.device_type == DeviceType.CPU}
+        waits = f"host waits {n_waits} (0 in the interpreter), " + \
+            ", ".join(f"{k} {host.get(k, 0):.1f}" for k in (
+                "cudaStreamSynchronize", "aten::item", "cudaMemcpyAsync"))
         busy = sum(t for _k, t, _c in kernels) / WARM_RUNS / 1e3
         count = sum(c for _k, _t, c in kernels) / WARM_RUNS
         kernels.sort(key=lambda k: -k[1])
@@ -463,7 +511,8 @@ def phase_profile(dev, eng: Engine) -> None:
              f"share {1 - busy / med:.2f}); profiled wall "
              f"{wall * 1e3:.2f} ms (idle share "
              f"{1 - busy / (wall * 1e3):.2f}), device busy {busy:.3f} ms, "
-             f"device activities {count:.0f} a query; top: {top}")
+             f"device activities {count:.0f} a query; {waits} a query; "
+             f"top: {top}")
 
 
 def main(argv) -> int:

@@ -81,7 +81,10 @@ def make_column(arr: np.ndarray, tag: str, device) -> Column:
     return _column_of(_encode_column(arr, tag), tag, device)
 
 
-def load_tables(data: Dict[str, Dict[str, np.ndarray]], device) -> Catalog:
+def load_tables(data: Dict[str, Dict[str, np.ndarray]],
+                device="cuda") -> Catalog:
+    """Generated tables as a catalog with every column on ``device`` (the
+    card unless the caller names another device)."""
     cat = Catalog()
     for tname, cols in data.items():
         schema = SCHEMA[tname]
@@ -142,8 +145,11 @@ def _payloads_load(path: str):
     return enc
 
 
-def load_tpch(sf: float = 0.01, *, device, cache: bool = True) -> Catalog:
-    """TPC-H catalog at scale factor sf with every column on ``device``.
+def load_tpch(sf: float = 0.01, *, device="cuda",
+              cache: bool = True) -> Catalog:
+    """TPC-H catalog at scale factor sf with every column on ``device``:
+    the card unless the caller names another device (without a card the
+    default raises torch's own error; nothing falls back to the CPU).
     Large scale factors cache the *encoded* form (dict codes +
     dictionaries + property flags) on disk: re-loading costs one npz read
     + device upload instead of regeneration + string-dictionary build."""

@@ -19,8 +19,7 @@ from decimal import Decimal
 
 import numpy as np
 
-__all__ = ["q1", "q2", "q3", "q4", "q5", "q6", "q19", "q20", "ORACLES", "KINDS",
-           "decoded", "rows_differ"]
+__all__ = ["ORACLES", "KINDS", "decoded", "rows_differ"]
 
 
 def _days(s: str) -> int:
@@ -40,6 +39,38 @@ def _group_sum(keys: np.ndarray, vals: np.ndarray):
     sums = np.zeros(len(uniq), np.int64)
     np.add.at(sums, inv, vals.astype(np.int64))
     return uniq, sums
+
+
+def _year(days: np.ndarray) -> np.ndarray:
+    """Calendar year of days since 1970-01-01."""
+    return (days.astype("datetime64[D]").astype("datetime64[Y]")
+            .astype(np.int64) + 1970)
+
+
+def _volume(li, m) -> np.ndarray:
+    """l_extendedprice * (1 - l_discount) of the rows ``m``, scale 4."""
+    return li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+
+
+def _pack(*cols) -> np.ndarray:
+    """One int64 code per row from non-negative integer columns, ordered
+    as the tuple of columns orders."""
+    code = np.zeros(len(cols[0]), np.int64)
+    for c in cols:
+        code = code * (int(c.max()) + 1 if len(c) else 1) + c
+    return code
+
+
+def _contains_then(a: np.ndarray, first: str, then: str) -> np.ndarray:
+    """LIKE '%first%then%' over a string array."""
+    at = np.char.find(a, first)
+    after = np.char.find(a, then, np.where(at >= 0, at + len(first), 0))
+    return (at >= 0) & (after >= 0)
+
+
+def _nation_key(data, name: str) -> int:
+    n = data["nation"]
+    return int(n["n_nationkey"][n["n_name"] == name][0])
 
 
 def _nations_of_region(data, region: str) -> np.ndarray:
@@ -236,8 +267,298 @@ def q20(data):
     return rows
 
 
+def q7(data):
+    """(supp_nation, cust_nation, l_year, revenue scale 4) by the first
+    three."""
+    s, li, o, c, n = (data[t] for t in ("supplier", "lineitem", "orders",
+                                        "customer", "nation"))
+    fr, de = _nation_key(data, "FRANCE"), _nation_key(data, "GERMANY")
+    s_nat = _by_key(s["s_suppkey"], s["s_nationkey"], -1)
+    c_nat = _by_key(c["c_custkey"], c["c_nationkey"], -1)
+    o_cnat = _by_key(o["o_orderkey"], c_nat[o["o_custkey"]], -1)
+    sn, cn = s_nat[li["l_suppkey"]], o_cnat[li["l_orderkey"]]
+    m = ((li["l_shipdate"] >= _days("1995-01-01"))
+         & (li["l_shipdate"] <= _days("1996-12-31"))
+         & (((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))))
+    year = _year(li["l_shipdate"][m])
+    keys, rev = _group_sum(_pack(sn[m], cn[m], year), _volume(li, m))
+    n_name = _by_key(n["n_nationkey"], n["n_name"], "")
+    ny = int(year.max()) + 1 if len(year) else 1
+    nn = int(cn[m].max()) + 1 if len(year) else 1
+    rows = [(str(n_name[k // ny // nn]), str(n_name[k // ny % nn]),
+             int(k % ny), int(r)) for k, r in zip(keys.tolist(), rev.tolist())]
+    rows.sort(key=lambda r: r[:3])
+    return rows
+
+
+def q8(data):
+    """(o_year, mkt_share float) by o_year."""
+    p, s, li, o, c = (data[t] for t in ("part", "supplier", "lineitem",
+                                        "orders", "customer"))
+    america = _nations_of_region(data, "AMERICA")
+    brazil = _nation_key(data, "BRAZIL")
+    c_nat = _by_key(c["c_custkey"], c["c_nationkey"], -1)
+    o_ok = _by_key(o["o_orderkey"],
+                   america[c_nat[o["o_custkey"]]]
+                   & (o["o_orderdate"] >= _days("1995-01-01"))
+                   & (o["o_orderdate"] <= _days("1996-12-31")), False)
+    p_ok = _by_key(p["p_partkey"], p["p_type"] == "ECONOMY ANODIZED STEEL",
+                   False)
+    m = o_ok[li["l_orderkey"]] & p_ok[li["l_partkey"]]
+    year = _year(_by_key(o["o_orderkey"], o["o_orderdate"])
+                 [li["l_orderkey"][m]])
+    vol = _volume(li, m)
+    from_brazil = _by_key(s["s_suppkey"], s["s_nationkey"],
+                          -1)[li["l_suppkey"][m]] == brazil
+    years, total = _group_sum(year, vol)
+    _y, part = _group_sum(year, np.where(from_brazil, vol, 0))
+    return [(int(y), (float(a) / 1e4) / (float(b) / 1e4))
+            for y, a, b in zip(years.tolist(), part.tolist(), total.tolist())]
+
+
+def q9(data):
+    """(nation, o_year, sum_profit scale 4) by nation, o_year desc."""
+    p, s, li, ps, o, n = (data[t] for t in ("part", "supplier", "lineitem",
+                                            "partsupp", "orders", "nation"))
+    green = _by_key(p["p_partkey"], np.char.find(p["p_name"], "green") >= 0,
+                    False)
+    m = green[li["l_partkey"]]
+    nsupp = int(s["s_suppkey"].max()) + 1
+    ps_pair = ps["ps_partkey"].astype(np.int64) * nsupp + ps["ps_suppkey"]
+    order = np.argsort(ps_pair)
+    l_pair = li["l_partkey"][m].astype(np.int64) * nsupp + li["l_suppkey"][m]
+    at = order[np.searchsorted(ps_pair[order], l_pair)]
+    assert np.array_equal(ps_pair[at], l_pair)
+    amount = _volume(li, m) - ps["ps_supplycost"][at] * li["l_quantity"][m]
+    nat = _by_key(s["s_suppkey"], s["s_nationkey"], -1)[li["l_suppkey"][m]]
+    year = _year(_by_key(o["o_orderkey"], o["o_orderdate"])
+                 [li["l_orderkey"][m]])
+    keys, profit = _group_sum(_pack(nat, year), amount)
+    ny = int(year.max()) + 1
+    n_name = _by_key(n["n_nationkey"], n["n_name"], "")
+    rows = [(str(n_name[k // ny]), int(k % ny), int(v))
+            for k, v in zip(keys.tolist(), profit.tolist())]
+    rows.sort(key=lambda r: (r[0], -r[1]))
+    return rows
+
+
+def q10(data):
+    """(c_custkey, c_name, revenue scale 4, c_acctbal, n_name, c_address,
+    c_phone, c_comment), first 20 by revenue desc (then c_custkey)."""
+    c, o, li = data["customer"], data["orders"], data["lineitem"]
+    o_ok = _by_key(o["o_orderkey"],
+                   (o["o_orderdate"] >= _days("1993-10-01"))
+                   & (o["o_orderdate"] < _days("1994-01-01")), False)
+    m = o_ok[li["l_orderkey"]] & (li["l_returnflag"] == "R")
+    o_cust = _by_key(o["o_orderkey"], o["o_custkey"], -1)
+    cust, rev = _group_sum(o_cust[li["l_orderkey"][m]], _volume(li, m))
+    top = sorted(zip(cust.tolist(), rev.tolist()),
+                 key=lambda r: (-r[1], r[0]))[:20]
+    c_row = _by_key(c["c_custkey"], np.arange(len(c["c_custkey"])), -1)
+    n_name = _by_key(data["nation"]["n_nationkey"],
+                     data["nation"]["n_name"], "")
+    rows = []
+    for k, r in top:
+        i = int(c_row[k])
+        rows.append((int(k), str(c["c_name"][i]), int(r),
+                     int(c["c_acctbal"][i]),
+                     str(n_name[c["c_nationkey"][i]]),
+                     str(c["c_address"][i]), str(c["c_phone"][i]),
+                     str(c["c_comment"][i])))
+    return rows
+
+
+def q11(data):
+    """(ps_partkey, value scale 2) by value desc (then ps_partkey)."""
+    ps, s = data["partsupp"], data["supplier"]
+    german = _by_key(s["s_suppkey"],
+                     s["s_nationkey"] == _nation_key(data, "GERMANY"), False)
+    m = german[ps["ps_suppkey"]]
+    parts, value = _group_sum(
+        ps["ps_partkey"][m],
+        ps["ps_supplycost"][m] * ps["ps_availqty"][m].astype(np.int64))
+    total = int(value.astype(object).sum())
+    # value > total * 0.0001, both sides at scale 6
+    rows = [(int(k), int(v)) for k, v in zip(parts.tolist(), value.tolist())
+            if int(v) * 10_000 > total]
+    rows.sort(key=lambda r: (-r[1], r[0]))
+    return rows
+
+
+def q12(data):
+    """(l_shipmode, high_line_count, low_line_count) by l_shipmode."""
+    o, li = data["orders"], data["lineitem"]
+    m = (np.isin(li["l_shipmode"], ["MAIL", "SHIP"])
+         & (li["l_commitdate"] < li["l_receiptdate"])
+         & (li["l_shipdate"] < li["l_commitdate"])
+         & (li["l_receiptdate"] >= _days("1994-01-01"))
+         & (li["l_receiptdate"] < _days("1995-01-01")))
+    high = _by_key(o["o_orderkey"],
+                   np.isin(o["o_orderpriority"], ["1-URGENT", "2-HIGH"]),
+                   False)[li["l_orderkey"][m]]
+    mode = li["l_shipmode"][m]
+    return [(str(k), int((high & (mode == k)).sum()),
+             int((~high & (mode == k)).sum()))
+            for k in sorted(set(mode.tolist()))]
+
+
+def q13(data):
+    """(c_count, custdist) by custdist desc, c_count desc."""
+    c, o = data["customer"], data["orders"]
+    ok = ~_contains_then(o["o_comment"], "special", "requests")
+    per_cust = np.bincount(o["o_custkey"][ok],
+                           minlength=int(c["c_custkey"].max()) + 1)
+    counts, dist = np.unique(per_cust[c["c_custkey"]], return_counts=True)
+    rows = [(int(k), int(v)) for k, v in zip(counts.tolist(), dist.tolist())]
+    rows.sort(key=lambda r: (-r[1], -r[0]))
+    return rows
+
+
+def q14(data):
+    """(promo_revenue float,): 100.00 * promo / total, the decimal product
+    at scale 6 and the total at scale 4 divided as floats."""
+    p, li = data["part"], data["lineitem"]
+    m = ((li["l_shipdate"] >= _days("1995-09-01"))
+         & (li["l_shipdate"] < _days("1995-10-01")))
+    if not m.any():
+        return [(None,)]
+    promo = _by_key(p["p_partkey"], np.char.startswith(p["p_type"], "PROMO"),
+                    False)[li["l_partkey"][m]]
+    vol = _volume(li, m).astype(object)
+    return [((float(10_000 * int(vol[promo].sum())) / 1e6)
+             / (float(int(vol.sum())) / 1e4),)]
+
+
+def q15(data):
+    """(s_suppkey, s_name, s_address, s_phone, total_revenue scale 4) by
+    s_suppkey."""
+    s, li = data["supplier"], data["lineitem"]
+    m = ((li["l_shipdate"] >= _days("1996-01-01"))
+         & (li["l_shipdate"] < _days("1996-04-01")))
+    supp, rev = _group_sum(li["l_suppkey"][m], _volume(li, m))
+    s_row = _by_key(s["s_suppkey"], np.arange(len(s["s_suppkey"])), -1)
+    rows = []
+    for k in supp[rev == rev.max()].tolist():
+        i = int(s_row[k])
+        assert i >= 0
+        rows.append((int(k), str(s["s_name"][i]), str(s["s_address"][i]),
+                     str(s["s_phone"][i]), int(rev.max())))
+    return rows
+
+
+def q16(data):
+    """(p_brand, p_type, p_size, supplier_cnt) by supplier_cnt desc,
+    p_brand, p_type, p_size."""
+    ps, p, s = data["partsupp"], data["part"], data["supplier"]
+    complaints = _by_key(s["s_suppkey"], _contains_then(
+        s["s_comment"], "Customer", "Complaints"), False)
+    brands, brand = np.unique(p["p_brand"], return_inverse=True)
+    types, typ = np.unique(p["p_type"], return_inverse=True)
+    p_ok = ((p["p_brand"] != "Brand#45")
+            & ~np.char.startswith(p["p_type"], "MEDIUM POLISHED")
+            & np.isin(p["p_size"], [49, 14, 23, 45, 19, 3, 36, 9]))
+    nsize = int(p["p_size"].max()) + 1
+    group = _by_key(p["p_partkey"],
+                    np.where(p_ok, (brand * len(types) + typ) * nsize
+                             + p["p_size"], -1).astype(np.int64), -1)
+    g = group[ps["ps_partkey"]]
+    m = (g >= 0) & ~complaints[ps["ps_suppkey"]]
+    nsupp = int(s["s_suppkey"].max()) + 1
+    pairs = np.unique(g[m] * nsupp + ps["ps_suppkey"][m])
+    groups, cnt = np.unique(pairs // nsupp, return_counts=True)
+    rows = [(str(brands[k // nsize // len(types)]),
+             str(types[k // nsize % len(types)]), int(k % nsize), int(v))
+            for k, v in zip(groups.tolist(), cnt.tolist())]
+    rows.sort(key=lambda r: (-r[3], r[0], r[1], r[2]))
+    return rows
+
+
+def q17(data):
+    """(avg_yearly float,): sum(l_extendedprice) / 7.0 over the small
+    orders; avg(l_quantity) is a float, so the comparison is one too."""
+    p, li = data["part"], data["lineitem"]
+    npart = int(p["p_partkey"].max()) + 1
+    cnt = np.bincount(li["l_partkey"], minlength=npart)
+    qty = np.zeros(npart, np.int64)
+    np.add.at(qty, li["l_partkey"], li["l_quantity"])
+    avg_qty = qty.astype(np.float64) / 100.0 / np.maximum(cnt, 1)
+    p_ok = _by_key(p["p_partkey"], (p["p_brand"] == "Brand#23")
+                   & (p["p_container"] == "MED BOX"), False)
+    m = (p_ok[li["l_partkey"]]
+         & (li["l_quantity"] / 100.0 < 0.2 * avg_qty[li["l_partkey"]]))
+    if not m.any():
+        return [(None,)]
+    total = int(li["l_extendedprice"][m].astype(object).sum())
+    return [((float(total) / 100.0) / 7.0,)]
+
+
+def q18(data):
+    """(c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+    sum(l_quantity) scale 2), first 100 by o_totalprice desc, o_orderdate
+    (then o_orderkey)."""
+    o, li = data["orders"], data["lineitem"]
+    qty = np.zeros(int(o["o_orderkey"].max()) + 1, np.int64)
+    np.add.at(qty, li["l_orderkey"], li["l_quantity"])
+    big = np.flatnonzero(qty[o["o_orderkey"]] > 300 * 100)
+    c = data["customer"]
+    c_row = _by_key(c["c_custkey"], np.arange(len(c["c_custkey"])), -1)
+    rows = []
+    for i in big.tolist():
+        ck, ok = int(o["o_custkey"][i]), int(o["o_orderkey"][i])
+        rows.append((str(c["c_name"][c_row[ck]]), ck, ok,
+                     int(o["o_orderdate"][i]), int(o["o_totalprice"][i]),
+                     int(qty[ok])))
+    rows.sort(key=lambda r: (-r[4], r[3], r[2]))
+    return rows[:100]
+
+
+def q21(data):
+    """(s_name, numwait), first 100 by numwait desc, s_name."""
+    s, li, o = data["supplier"], data["lineitem"], data["orders"]
+    nsupp = int(s["s_suppkey"].max()) + 1
+    norder = int(o["o_orderkey"].max()) + 1
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    pair = li["l_orderkey"].astype(np.int64) * nsupp + li["l_suppkey"]
+    # distinct suppliers per order, among all lineitems and the late ones
+    supps = np.bincount(np.unique(pair) // nsupp, minlength=norder)
+    late_supps = np.bincount(np.unique(pair[late]) // nsupp,
+                             minlength=norder)
+    saudi = _by_key(s["s_suppkey"], s["s_nationkey"]
+                    == _nation_key(data, "SAUDI ARABIA"), False)
+    f_order = _by_key(o["o_orderkey"], o["o_orderstatus"] == "F", False)
+    ok = li["l_orderkey"]
+    # another supplier in the order, and no other supplier late
+    m = (late & saudi[li["l_suppkey"]] & f_order[ok]
+         & (supps[ok] >= 2) & (late_supps[ok] == 1))
+    supp, cnt = np.unique(li["l_suppkey"][m], return_counts=True)
+    s_name = _by_key(s["s_suppkey"], s["s_name"], "")
+    rows = [(str(s_name[k]), int(v)) for k, v in zip(supp.tolist(),
+                                                     cnt.tolist())]
+    rows.sort(key=lambda r: (-r[1], r[0]))
+    return rows[:100]
+
+
+def q22(data):
+    """(cntrycode, numcust, totacctbal scale 2) by cntrycode; the average
+    balance is a float, so the comparison with it is one too."""
+    c, o = data["customer"], data["orders"]
+    code = c["c_phone"].astype("U2")
+    wanted = np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    bal = c["c_acctbal"]
+    rich = wanted & (bal > 0)
+    avg = float(int(bal[rich].astype(object).sum())) / 100.0 / int(rich.sum())
+    has_order = np.bincount(o["o_custkey"],
+                            minlength=int(c["c_custkey"].max()) + 1) > 0
+    m = wanted & (bal / 100.0 > avg) & ~has_order[c["c_custkey"]]
+    return [(str(k), int((m & (code == k)).sum()),
+             int(bal[m & (code == k)].sum()))
+            for k in sorted(set(code[m].tolist()))]
+
+
 #: query number -> oracle
-ORACLES = {1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 6: q6, 19: q19, 20: q20}
+ORACLES = {1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 6: q6, 7: q7, 8: q8, 9: q9,
+           10: q10, 11: q11, 12: q12, 13: q13, 14: q14, 15: q15, 16: q16,
+           17: q17, 18: q18, 19: q19, 20: q20, 21: q21, 22: q22}
 
 #: query number -> kind of each result column: a decimal's scale (int),
 #: "str", "int", "date" or "float"
@@ -248,8 +569,22 @@ KINDS = {
     4: ("str", "int"),
     5: ("str", 4),
     6: (4,),
+    7: ("str", "str", "int", 4),
+    8: ("int", "float"),
+    9: ("str", "int", 4),
+    10: ("int", "str", 4, 2, "str", "str", "str", "str"),
+    11: ("int", 2),
+    12: ("str", "int", "int"),
+    13: ("int", "int"),
+    14: ("float",),
+    15: ("int", "str", "str", "str", 4),
+    16: ("str", "str", "int", "int"),
+    17: ("float",),
+    18: ("str", "int", "int", "date", 2, 2),
     19: (4,),
     20: ("str", "str"),
+    21: ("str", "int"),
+    22: ("str", "int", 2),
 }
 
 _EPOCH = datetime.date(1970, 1, 1)

@@ -29,13 +29,14 @@ Kept from the reference's design:
 * unique-build equi-joins keep the probe side's rows at their capacity and
   gather the build side's columns (direct-address table, or sort + binary
   search); a build side that turns out non-unique is flagged on the device
-  and re-lowered as an expanding join.
+  and re-lowered as an expanding join (``r_join_expand``), whose output
+  capacity is one more count-then-retry bucket.
+* scalar subqueries run at plan time, through this same fragment, and are
+  baked into the IR as literals.
 
-Not ported yet (raise ``Unsupported``): the IR nodes outside TPC-H Q1-Q6,
-Q19 and Q20's set (expanding joins, distinct aggregates, CASE, date
-extraction, renames, ...), SPMD over a device mesh, and the lowering paths
-that need the op-at-a-time executor, date arithmetic or string functions.
-There is no fallback executor: a plan the fragment rejects raises
+Not ported yet (raise ``Unsupported``): SPMD over a device mesh, string
+casts, and plans that need the op-at-a-time executor (window functions,
+...).  There is no fallback executor: a plan the fragment rejects raises
 ``Unsupported``.
 """
 
@@ -946,31 +947,37 @@ class Lowering:
         return ("lit", v, pt.dt), pt
 
     def _subquery(self, e: Subquery):
-        """Scalar subquery: run it via the op-at-a-time executor at plan
-        time and bake the value (data-dependent -> IR changes with data,
-        which keys the compile cache correctly)."""
+        """Scalar subquery: run it at plan time and bake the value
+        (data-dependent -> IR changes with data, which keys the plan memo
+        correctly).  The reference runs it through its op-at-a-time
+        executor; the port runs the bound plan through a fragment of its
+        own, so a subquery the fragment cannot lower raises Unsupported."""
         if not (isinstance(e.select, tuple) and e.select[0] == "bound"):
             raise Unsupported("unbound subquery")
         if e.kind != "scalar":
             raise Unsupported(f"{e.kind} subquery in fragment expression")
-        # port: restores `from .executor import Executor`
-        raise Unsupported("scalar subquery: exec/executor.py not ported yet")
         _tag, rel, scols = e.select
-        frame = Executor(self.catalog).run(rel)
-        col = frame.get("#out", scols[0].name)
-        if frame.count == 0:
-            return self._lit(HScalar(None, col.typ))
-        v = np.asarray(col.data[0])
-        if col.typ.np_dtype.kind == "f":
+        fr = CompiledFragment(self.catalog, rel, [scols[0].name]).run()
+        typ = fr.pts[0].typ
+        if fr.count == 0:
+            return self._lit(HScalar(None, typ))
+        v = fr.arrays[0][0]
+        if typ.np_dtype.kind == "f":
             fv = float(v)
-            return self._lit(HScalar(None if np.isnan(fv) else fv, col.typ))
+            return self._lit(HScalar(None if np.isnan(fv) else fv, typ))
         iv = int(v)
-        if col.typ.np_dtype.kind == "i" and \
-                iv == np.iinfo(col.typ.np_dtype).min:
-            return self._lit(HScalar(None, col.typ))
-        if col.typ.kind == Kind.STR:
-            return self._lit(HScalar(str(col.sdict.values[iv]), col.typ))
-        return self._lit(HScalar(iv, col.typ))
+        if 0 in fr.wide:
+            # a bare wide sum: nil rides in the low limb; beyond int64 is
+            # the overflow a narrowing expression would raise
+            if iv != _I64_MIN_PY:
+                iv += int(fr.arrays[fr.wide[0]][0]) << 32
+                if not -(1 << 63) < iv < (1 << 63):
+                    _raise_err(4)
+        if typ.np_dtype.kind == "i" and iv == np.iinfo(typ.np_dtype).min:
+            return self._lit(HScalar(None, typ))
+        if typ.kind == Kind.STR:
+            return self._lit(HScalar(str(fr.pts[0].sdict.values[iv]), typ))
+        return self._lit(HScalar(iv, typ))
 
     # -- arithmetic (mirrors executor._eval_binop + ops/calc.py) -------------
     def _tofloat(self, ir, pt: PT):
@@ -1196,8 +1203,7 @@ class Lowering:
         raise Unsupported(f"function {e.name}")
 
     def _extract(self, field: str, ir, pt: PT):
-        # port: restores `from ..ops.datecalc import _FIELD_ALIASES`
-        raise Unsupported(f"extract {field}: ops/datecalc.py not ported yet")
+        from ..ops.datecalc import _FIELD_ALIASES
         field = _FIELD_ALIASES.get(field, field)
         k = pt.typ.kind
         if k == Kind.TIME:
@@ -1644,6 +1650,12 @@ def _set_drop(size: int, fill, pos, vals):
     return out[:size]
 
 
+def _nil64_to_i32(out):
+    """An int64 extract result as int32, nil to nil."""
+    return torch.where(out == _I64_MIN_PY, _nil_const(torch.int32),
+                       out).to(torch.int32)
+
+
 def _gather_nil(arr, oids, live_out):
     """arr[oids] with dead slots (live_out False or oid<0) -> nil."""
     ok = live_out & (oids >= 0)
@@ -1660,6 +1672,18 @@ def _lexsort(keys: list):
         perm = torch.argsort(k, stable=True) if perm is None else \
             perm[torch.argsort(k[perm], stable=True)]
     return perm
+
+
+def _group_key(arr):
+    """A column as a grouping sort key: grouping needs only a total order
+    with nils grouped, so raw integer/code order qualifies; floats go
+    through sort_key (NaN is not equal to itself) and bools become
+    integers (they do not sort)."""
+    if arr.dtype == torch.bool:
+        return arr.to(torch.int8)
+    if arr.dtype.is_floating_point:
+        return sort_key(arr, False, None)
+    return arr
 
 
 def _idiv(a, b):
@@ -1686,9 +1710,10 @@ class _SegReduce:
       ``seg_sum64`` kernel (plain version on a CPU tensor).
     * scatter (more slots): integer sums are one ``index_add_`` each.
 
-    Float sums, extrema and first indices scatter into seg + 1 slots in
-    both modes (the spare slot takes the excluded rows and is cut off), so
-    the (cap, seg) one-hot matrix that XLA fuses away is never built.
+    Float sums, extrema, products and first indices scatter into seg + 1
+    slots in both modes (the spare slot takes the excluded rows and is cut
+    off), so the (cap, seg) one-hot matrix that XLA fuses away is never
+    built.
     Scattered float sums add in an order that changes from run to run.
     The reference's third mode (reductions in sorted order by prefix
     scans) has no counterpart: the sort group-by assigns ids and reduces
@@ -1726,6 +1751,12 @@ class _SegReduce:
                             reduce="amin" if is_min else "amax")
         return out[: self.seg]
 
+    def prod(self, vals):
+        """Per-segment product; vals must be 1 outside the set."""
+        out = torch.ones(self.seg + 1, dtype=vals.dtype, device=vals.device)
+        return out.scatter_reduce_(0, self._idx(), vals,
+                                   reduce="prod")[: self.seg]
+
     def first_index(self):
         """Lowest contributing row index of each segment (-1 for empty
         segments) - BATgroup extents."""
@@ -1736,8 +1767,9 @@ class _SegReduce:
 
 
 class _Interp:
-    """IR interpreter: every method runs torch ops on the inputs' device.
-    Nodes the port does not have yet raise Unsupported."""
+    """IR interpreter: every method runs torch ops on the inputs' device
+    and none reads a value back to the host.  Nodes the port does not have
+    (the SPMD ones) raise Unsupported."""
 
     def __init__(self, inputs):
         self.inputs = inputs
@@ -1746,12 +1778,30 @@ class _Interp:
         # total counts per compaction barrier / group bucket (the host
         # compares each with its static capacity and retries on overflow)
         self.exp_totals: Dict[int, torch.Tensor] = {}
+        # per-row error suppression inside untaken CASE branches (the
+        # reference only evaluates the taken branch per row,
+        # BugTracker-2009 case_evaluates_all_branches.SF-2893484; under
+        # eager whole-column evaluation the per-element error conditions
+        # are masked by the branch-selection mask instead)
+        self._vmask = None
 
     def flag_rows(self, rows, code: int):
-        """Record error ``code`` if any of ``rows`` is set.  (The
-        reference also masks rows of untaken CASE branches here; CASE is
-        not ported yet.)"""
+        """Record error ``code`` if any of ``rows`` is set, honoring the
+        CASE branch-selection mask (rows where the branch is not taken
+        never raise)."""
+        if self._vmask is not None:
+            rows = rows & self._vmask
         self.errs.append(torch.any(rows).to(torch.int32) * code)
+
+    def _under(self, sel, ir, env, live):
+        """Evaluate ``ir`` with errors confined to the rows of ``sel``
+        (nested: to the rows the enclosing branches select as well)."""
+        outer = self._vmask
+        self._vmask = sel if outer is None else (outer & sel)
+        try:
+            return self.ev(ir, env, live)
+        finally:
+            self._vmask = outer
 
     def err(self):
         if not self.errs:
@@ -1779,6 +1829,22 @@ class _Interp:
         env = {key: self.inputs[i] for key, i in cols}
         count = self.inputs[cnt_idx]
         return env, count, None, env[cols[0][0]].shape[0]
+
+    def r_rename(self, ir):
+        env, count, mask, cap = self.rel(ir[1])
+        return {newk: env[oldk] for newk, oldk in ir[2]}, count, mask, cap
+
+    def r_distinct(self, ir):
+        """BATunique via sort grouping (gdk/gdk_unique.c): the lowest row
+        of each distinct combination survives, in sorted key order."""
+        env, count, mask, cap = self.rel(ir[1])
+        live = self.live_of(cap, count, mask)
+        keys = [_group_key(env[(e[1], e[2])]) for e, _d, _n in ir[2]]
+        ng, ids = self._sort_ids(keys, live, cap)
+        ext = _SegReduce(ids, cap).first_index()
+        live_out = torch.arange(cap, device=self.device) < ng
+        env2 = {k: _gather_nil(a, ext, live_out) for k, a in env.items()}
+        return env2, ng, None, cap
 
     def r_compact(self, ir):
         """Compaction barrier: gather live rows to the front of a
@@ -1871,6 +1937,21 @@ class _Interp:
                 comb = k
         return comb, valid
 
+    def _join_sides(self, lir, rir, keyspecs, bfilter):
+        """Both inputs of a join, the probe side's liveness, and each
+        side's packed key codes with their validity (the build side's
+        after its prefilter)."""
+        lenv, lcount, lmask, lcap = self.rel(lir)
+        renv, rcount, rmask, rcap = self.rel(rir)
+        llive = self.live_of(lcap, lcount, lmask)
+        rlive = self.live_of(rcap, rcount, rmask)
+        if bfilter is not None:
+            rlive = rlive & _bcast(self.pv(bfilter, renv, rlive), rcap)
+        code_l, lvalid = self._join_codes(keyspecs, lenv, llive, lcap, "l")
+        code_r, rvalid = self._join_codes(keyspecs, renv, rlive, rcap, "r")
+        return (lenv, lcount, lmask, lcap, llive, code_l, lvalid,
+                renv, rcap, code_r, rvalid)
+
     def r_join(self, ir):
         """Equi-join against a build side that matches each probe row at
         most once.  Of duplicate build keys the lowest build row wins in
@@ -1879,15 +1960,10 @@ class _Interp:
         see the reference's rows."""
         (_, kind, lir, rir, keyspecs, strat, domain, uniq_check,
          bfilter, extra, rkeys, ordinal) = ir
-        lenv, lcount, lmask, lcap = self.rel(lir)
-        renv, rcount, rmask, rcap = self.rel(rir)
+        (lenv, lcount, lmask, lcap, llive, code_l, lvalid,
+         renv, rcap, code_r, rvalid) = self._join_sides(
+            lir, rir, keyspecs, bfilter)
         dev = self.device
-        llive = self.live_of(lcap, lcount, lmask)
-        rlive = self.live_of(rcap, rcount, rmask)
-        if bfilter is not None:
-            rlive = rlive & _bcast(self.pv(bfilter, renv, rlive), rcap)
-        code_l, lvalid = self._join_codes(keyspecs, lenv, llive, lcap, "l")
-        code_r, rvalid = self._join_codes(keyspecs, renv, rlive, rcap, "r")
 
         if strat == "dense":
             # direct-address build (fetchjoin/hashjoin analog): invalid
@@ -1945,6 +2021,78 @@ class _Interp:
         if kind == "inner":
             return menv, lcount, masked(matched), lcap
         return menv, lcount, lmask, lcap     # left outer
+
+    def r_join_expand(self, ir):
+        """N:M join by match enumeration (gdk/gdk_join.c:2900 hashjoin with
+        duplicate keys).  Build side sorted by key; per probe row the match
+        run is [searchsorted left, searchsorted right); output slot j maps
+        back to (probe row, k-th match) through a cumsum of per-probe
+        output counts.  The total match count goes to the host, which
+        retries with a larger static capacity on overflow.  Slots at and
+        past the total hold garbage, so every index is clipped before it
+        gathers.  (Of the reference's two ways to find a match run, the
+        histogram LUT over a dense key domain and the two binary searches,
+        the port keeps the searches: they serve every key domain.)"""
+        (_, kind, lir, rir, keyspecs, bfilter, extra, lkeys, rkeys,
+         ecap, ordinal) = ir
+        (lenv, lcount, lmask, lcap, llive, code_l, lvalid,
+         renv, rcap, code_r, rvalid) = self._join_sides(
+            lir, rir, keyspecs, bfilter)
+        dev = self.device
+
+        sent = torch.iinfo(torch.int64).max
+        ks, rs = torch.sort(torch.where(rvalid, code_r, sent), stable=True)
+        kl = torch.where(lvalid, code_l, sent)
+        s = torch.searchsorted(ks, kl, right=False)
+        e = torch.searchsorted(ks, kl, right=True)
+        c = torch.where(lvalid, e - s, 0)
+        if kind == "left":
+            # probe rows with no match still emit one (nil-right) row
+            c_out = torch.where(llive, c.clamp(min=1), 0)
+        else:
+            c_out = c
+        csum = torch.cumsum(c_out, 0)
+        total = csum[-1] if lcap else \
+            torch.zeros((), dtype=torch.int64, device=dev)
+        self.exp_totals[ordinal] = total
+
+        # slot j -> owning probe row: the first row whose running count
+        # passes j (rows that emit nothing repeat their predecessor's
+        # count and are skipped).  The reference scatters each emitting
+        # row's first slot and backfills with a running max; torch's
+        # cummax kernel took 12.3 ms over 2^21 slots on an H100, three
+        # quarters of Q13's device time, where this binary search is one
+        # gather-bound pass
+        row_starts = csum - c_out
+        j = torch.arange(ecap, dtype=torch.int64, device=dev)
+        i_safe = torch.searchsorted(csum, j, right=True).clamp(
+            0, max(lcap - 1, 0))
+        ok = j < total
+        k = j - row_starts[i_safe]
+        rok = ok & (k < c[i_safe])
+        ridx = rs[(s[i_safe] + k).clamp(0, max(rcap - 1, 0))]
+
+        env2 = {key: _gather_nil(lenv[key], i_safe, ok) for key in lkeys}
+        for key in rkeys:
+            env2[key] = _gather_nil(renv[key], ridx, rok)
+        if kind in ("semi", "anti"):
+            # evaluate the residual per pair; pairs are emitted in
+            # probe-row order, so "any pair of probe row i passed" is a
+            # range-sum over [csum[i] - c_out[i], csum[i]): a cumsum and
+            # two gathers
+            ex = rok
+            if extra is not None:
+                ex = ex & _bcast(self.pv(extra, env2, ok), ecap)
+            cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.cumsum(ex.to(torch.int64), 0)])
+            hit = (cs[csum.clamp(0, ecap)]
+                   - cs[row_starts.clamp(0, ecap)]) > 0
+            m = hit if kind == "semi" else ~hit
+            return lenv, lcount, m if lmask is None else (lmask & m), lcap
+        if extra is not None:
+            return env2, total, \
+                ok & _bcast(self.pv(extra, env2, ok), ecap), ecap
+        return env2, total, None, ecap
 
     def r_groupby_dense(self, ir):
         """Histogram grouping over a combined small domain
@@ -2044,14 +2192,7 @@ class _Interp:
         live = self.live_of(cap, count, mask)
         karrs = []
         for e in sort_keys:
-            arr = _bcast(self.ev(e, env, live), cap)
-            if arr.dtype == torch.bool:
-                arr = arr.to(torch.int8)
-            elif arr.dtype.is_floating_point:
-                arr = sort_key(arr, False, None)
-            # else: grouping needs only a total order with nils grouped;
-            # raw integer/code order qualifies
-            karrs.append(arr)
+            karrs.append(_group_key(_bcast(self.ev(e, env, live), cap)))
         ng, ids = self._sort_ids(karrs, live, cap)
         red = _SegReduce(ids, cap)
         env2 = {}
@@ -2124,24 +2265,30 @@ class _Interp:
         use = live & ~nilm
         if op == "count":
             return red.sum(use.to(torch.int64))
-        if op not in ("sum", "avg", "min", "max"):
-            raise Unsupported(f"aggregate {op} not ported yet")
+        if op in ("count_distinct", "sum_distinct", "avg_distinct"):
+            return self._agg_distinct(spec, arr, use, cap, red)
         cnt = red.sum(use.to(torch.int64))
         if op == "sum":
+            return self._sum_slots(spec, arr, use, cnt, red)
+        if op == "prod":
             acc_dt = _tdt(spec[4])
-            vals = torch.where(use, arr.to(acc_dt), 0)
-            if spec[5]:
-                # exact int128-range accumulation via paired 32-bit limbs:
-                # lo = sum of the low halves, hi = sum of the arithmetic
-                # high halves; exact total = hi*2^32 + lo
-                v64 = vals.to(torch.int64)
-                lo = red.sum(v64 & 0xFFFFFFFF)
-                hi = red.sum(v64 >> 32)
-                hi = hi + (lo >> 32)   # carry: lo into [0, 2^32)
-                lo = lo & 0xFFFFFFFF
-                return torch.where(cnt == 0, _I64_MIN_PY, lo), hi
-            out = red.sum(vals, acc_dt)
+            out = red.prod(torch.where(use, arr.to(acc_dt), 1))
             return torch.where(cnt == 0, _nil_const(acc_dt), out)
+        if op == "moment2":
+            want, sample, scale = spec[4], spec[5], spec[6]
+            xf = torch.where(use, arr.to(torch.float64), 0.0)
+            s1 = red.sum(xf)
+            s2 = red.sum(xf * xf)
+            denom = torch.clamp(cnt - 1 if sample else cnt, min=1)
+            var = (s2 - s1 * s1 / torch.clamp(cnt, min=1)) / denom
+            var = torch.clamp(var, min=0.0)
+            if scale:
+                var = var / (10.0 ** (2 * scale))
+            bad = (cnt <= 1) if sample else (cnt == 0)
+            out = torch.sqrt(var) if want == "std" else var
+            return torch.where(bad, float("nan"), out)
+        if op not in ("avg", "min", "max"):
+            raise Unsupported(f"aggregate {op}")
         if op == "avg":
             scale = spec[4]
             if arr.dtype.is_floating_point:
@@ -2163,6 +2310,53 @@ class _Interp:
         out = red.extreme(torch.where(use, arr, fill), fill, op == "min")
         return torch.where(cnt == 0, _nil_const(dt), out)
 
+    @staticmethod
+    def _sum_slots(spec, arr, use, cnt, red):
+        """sum / sum_distinct over the rows of ``use`` (nil for a segment
+        none contributes to); spec[5] asks for the wide (lo, hi) form."""
+        acc_dt = _tdt(spec[4])
+        vals = torch.where(use, arr.to(acc_dt), 0)
+        if spec[5]:
+            # exact int128-range accumulation via paired 32-bit limbs:
+            # lo = sum of the low halves, hi = sum of the arithmetic
+            # high halves; exact total = hi*2^32 + lo
+            v64 = vals.to(torch.int64)
+            lo = red.sum(v64 & 0xFFFFFFFF)
+            hi = red.sum(v64 >> 32)
+            hi = hi + (lo >> 32)   # carry: lo into [0, 2^32)
+            lo = lo & 0xFFFFFFFF
+            return torch.where(cnt == 0, _I64_MIN_PY, lo), hi
+        out = red.sum(vals, acc_dt)
+        return torch.where(cnt == 0, _nil_const(acc_dt), out)
+
+    def _agg_distinct(self, spec, arr, use, cap, red):
+        """DISTINCT aggregates: dedup (group, value) pairs by a sort, then
+        reduce the first occurrence of each pair (gdk_aggr.c
+        count-distinct; the fused form of BATgroup-refine +
+        BATgroupcount).  The reference reduces the sorted rows with prefix
+        scans; here the flags go through the same segment reduction as
+        every other aggregate."""
+        op, seg = spec[0], red.seg
+        k1 = torch.where(use, red.sid.to(torch.int64), seg)
+        k2 = sort_key(arr, False, None)
+        perm = _lexsort([k1, k2])
+        k1s, k2s, vs = k1[perm], k2[perm], arr[perm]
+        first = torch.ones(cap, dtype=torch.bool, device=self.device)
+        first[1:] = (k1s[1:] != k1s[:-1]) | (k2s[1:] != k2s[:-1])
+        fu = first & (k1s < seg)
+        dred = _SegReduce(k1s, seg)
+        cnt_d = dred.sum(fu.to(torch.int64))
+        if op == "count_distinct":
+            return cnt_d
+        if op == "sum_distinct":
+            return self._sum_slots(spec, vs, fu, cnt_d, dred)
+        scale = spec[4]
+        sd = dred.sum(torch.where(fu, vs.to(torch.float64), 0.0))
+        if scale:
+            sd = sd / (10.0 ** scale)
+        a = sd / torch.clamp(cnt_d, min=1)
+        return torch.where(cnt_d == 0, float("nan"), a)
+
     # -- expression nodes ---------------------------------------------------
     def ev(self, ir, env, live):
         return self._dispatch("e_", ir[0])(ir, env, live)
@@ -2170,9 +2364,22 @@ class _Interp:
     def e_env(self, ir, env, live):
         return env[(ir[1], ir[2])]
 
+    def e_in(self, ir, env, live):
+        return self.inputs[ir[1]]
+
+    def _scalar(self, v, dt):
+        """A 0-d tensor on the device, made by a fill: a copy from host
+        memory would wait for the stream."""
+        return torch.full((), v, dtype=_tdt(dt), device=self.device)
+
     def e_lit(self, ir, env, live):
-        v = np.asarray(np.dtype(ir[2]).type(ir[1]))
-        return torch.as_tensor(v, device=self.device)
+        return self._scalar(np.dtype(ir[2]).type(ir[1]).item(), ir[2])
+
+    def e_nil(self, ir, env, live):
+        return self._scalar(_nil_const(ir[1]), ir[1])
+
+    def e_bool2val(self, ir, env, live):
+        return (self.pv(ir[1], env, live) & live).to(torch.int8)
 
     def e_packcode(self, ir, env, live):
         """Mixed-radix pack of dense key codes into one int64 sort key
@@ -2251,15 +2458,225 @@ class _Interp:
             raise Unsupported(op)
         return torch.where(valid, res, _nil_const(dt))
 
+    def e_farith(self, ir, env, live):
+        _, op, a_ir, b_ir, _anil, _bnil = ir
+        a = self.ev(a_ir, env, live).to(torch.float64)
+        b = self.ev(b_ir, env, live).to(torch.float64)
+        if op == "add":
+            return a + b
+        if op == "sub":
+            return a - b
+        if op == "mul":
+            return a * b
+        if op == "mod":
+            bz = b == 0
+            return torch.where(
+                bz, float("nan"),
+                a - torch.trunc(a / torch.where(bz, 1.0, b)) * b)
+        raise Unsupported(op)
+
+    def e_fdiv(self, ir, env, live):
+        """Float division; nil is NaN, and a zero divisor of a live,
+        non-nil row is the reference's error 22012."""
+        _, _op, a_ir, b_ir, anil, bnil = ir
+        a = self.ev(a_ir, env, live).to(torch.float64)
+        b = self.ev(b_ir, env, live).to(torch.float64)
+        valid = live
+        if anil:
+            valid = valid & ~torch.isnan(a)
+        if bnil:
+            valid = valid & ~torch.isnan(b)
+        bz = b == 0
+        self.flag_rows(valid & bz, 2)
+        return torch.where(bz, float("nan"), a / torch.where(bz, 1.0, b))
+
+    def e_tofloat(self, ir, env, live):
+        _, a_ir, scale, anil, _dt = ir
+        a = self.ev(a_ir, env, live)
+        f = a.to(torch.float64)
+        if a.dtype.is_floating_point:
+            return f
+        if scale:
+            f = f / (10.0 ** scale)
+        if anil or a.dtype != torch.bool:
+            f = torch.where(_nilm_arr(a), float("nan"), f)
+        return f
+
     def e_upscale(self, ir, env, live):
         _, a_ir, k, anil, _dt, _check = ir
         a = self.ev(a_ir, env, live)
         x = a.to(torch.int64) * (10 ** k)
         return torch.where(_nilm_arr(a), _I64_MIN_PY, x)
 
+    def e_convert(self, ir, env, live):
+        """gdk/gdk_calc_convert.c semantics (mirrors ops/calc.py _convert):
+        float->int rounds half away from zero, integer downscale rounds
+        half away, narrowing range-checked (error 3)."""
+        _, a_ir, out_dt, up, down, check, anil, _in_dt, _fdec, _tdec = ir
+        a = self.ev(a_ir, env, live)
+        dt = _tdt(out_dt)
+        a_f = a.dtype.is_floating_point
+        a_i = not a_f and a.dtype != torch.bool
+        to_i = not dt.is_floating_point and dt != torch.bool
+        nilm = _nilm_arr(a)         # all-False for bools
+        valid = live & ~nilm
+        if a_f and to_i:
+            xs = a * (10 ** up) if up else a
+            r = torch.where(xs >= 0, torch.floor(xs + 0.5),
+                            torch.ceil(xs - 0.5))
+            if check:
+                lo = float(torch.iinfo(dt).min + 1)
+                hi = float(torch.iinfo(dt).max)
+                self.flag_rows(valid & ((r < lo) | (r > hi)), 3)
+            res = r.to(dt)
+        elif a_i and dt.is_floating_point and down:
+            res = a.to(dt) / (10 ** down)
+        else:
+            x = a.to(torch.int64) if (a_i and (up or down)) else a
+            if up:
+                x = x * (10 ** up)
+            if down:
+                d = 10 ** down
+                half = d // 2
+                x = torch.where(x >= 0, (x + half) // d,
+                                -((-x + half) // d))
+            if check and a_i and to_i and dt.itemsize < 8:
+                lo = torch.iinfo(dt).min + 1
+                hi = torch.iinfo(dt).max
+                self.flag_rows(valid & ((x < lo) | (x > hi)), 3)
+            res = x.to(dt)
+        return torch.where(nilm, _nil_const(dt), res)
+
+    def e_lutmap(self, ir, env, live):
+        _, lut_i, a_ir, out_dt = ir
+        lut = self.inputs[lut_i]
+        a = self.ev(a_ir, env, live)
+        nil = _nil_const(out_dt)
+        if lut.shape[0] == 0:      # empty dict: every code is nil
+            return torch.full(a.shape, nil, dtype=_tdt(out_dt),
+                              device=self.device)
+        ok = a >= 0
+        return torch.where(ok, lut[torch.where(ok, a, 0).long()], nil)
+
+    def e_lutmap_keepnil(self, ir, env, live):
+        _, lut_i, a_ir = ir
+        lut = self.inputs[lut_i]
+        a = self.ev(a_ir, env, live)
+        if lut.shape[0] == 0:      # empty dict: no valid codes exist
+            return a.clamp(max=-1)
+        ok = a >= 0
+        return torch.where(ok, lut[torch.where(ok, a, 0).long()], a)
+
+    def e_case(self, ir, env, live):
+        """Every branch is evaluated for all rows; its errors (division
+        by zero, overflow) only fire for rows that take it (_vmask), as
+        the reference's per-row lazy CASE.  Values are cast to the node's
+        type before torch.where, which would otherwise promote."""
+        _, whens, default, out_dt = ir
+        dt = _tdt(out_dt)
+        taken = torch.zeros(live.shape, dtype=torch.bool, device=self.device)
+        branches = []
+        for p_ir, v_ir in whens:
+            p = self.pv(p_ir, env, live).expand(live.shape)
+            branches.append((p, p & ~taken, v_ir))
+            taken = taken | p
+        res = self._under(~taken, default, env, live).to(dt)
+        for p, sel, v_ir in reversed(branches):
+            res = torch.where(p, self._under(sel, v_ir, env, live).to(dt),
+                              res)
+        return res
+
+    def e_ifnil(self, ir, env, live):
+        _, a_ir, b_ir, out_dt = ir
+        dt = _tdt(out_dt)
+        a = self.ev(a_ir, env, live).to(dt)
+        isnil = _nilm_arr(a)
+        # COALESCE's fallback is lazy per row (see e_case)
+        b = self._under(isnil.expand(live.shape), b_ir, env, live).to(dt)
+        return torch.where(isnil, b, a)
+
+    def e_nullif(self, ir, env, live):
+        _, p_ir, a_ir, dt = ir
+        p = self.pv(p_ir, env, live)
+        return torch.where(p, _nil_const(dt), self.ev(a_ir, env, live))
+
+    def e_unop(self, ir, env, live):
+        _, name, a_ir, _dt, _anil = ir
+        a = self.ev(a_ir, env, live)
+        res = -a if name == "neg" else torch.abs(a)
+        if a.dtype.is_floating_point:
+            return res                # NaN stays NaN
+        return torch.where(_nilm_arr(a), _nil_const(a.dtype), res)
+
+    _MATH_FNS = {"sqrt": torch.sqrt, "ln": torch.log, "log10": torch.log10,
+                 "exp": torch.exp, "sin": torch.sin, "cos": torch.cos,
+                 "tan": torch.tan, "floor": torch.floor, "ceil": torch.ceil}
+
+    def e_math(self, ir, env, live):
+        return self._MATH_FNS[ir[1]](self.ev(ir[2], env, live))
+
+    def e_pow(self, ir, env, live):
+        return torch.pow(self.ev(ir[1], env, live),
+                         self.ev(ir[2], env, live))
+
+    def e_dextract(self, ir, env, live):
+        """EXTRACT from a date or timestamp: int32 with the int32 minimum
+        as nil; ``epoch`` stays int64."""
+        from ..ops.datecalc import _extract
+        _, field, a_ir, is_ts, _anil = ir
+        out = _extract(self.ev(a_ir, env, live), field=field, is_ts=is_ts)
+        return out if field == "epoch" else _nil64_to_i32(out)
+
+    def e_textract(self, ir, env, live):
+        _, field, a_ir, _anil = ir
+        us = self.ev(a_ir, env, live)
+        if field == "hour":
+            out = us // 3_600_000_000
+        elif field == "minute":
+            out = (us // 60_000_000) % 60
+        elif field == "second":
+            out = (us // 1_000_000) % 60
+        else:  # epoch
+            out = us // 1_000_000
+        out = torch.where(us == _I64_MIN_PY, _I64_MIN_PY, out)
+        return out if field == "epoch" else _nil64_to_i32(out)
+
+    def e_dtrunc(self, ir, env, live):
+        from ..ops.datecalc import _trunc
+        _, field, a_ir, is_ts, _anil = ir
+        return _trunc(self.ev(a_ir, env, live), field=field, is_ts=is_ts)
+
     # -- predicates -----------------------------------------------------------
     def pv(self, ir, env, live):
         return self._dispatch("p_", ir[0])(ir, env, live)
+
+    def p_ptrue(self, ir, env, live):
+        return self._scalar(True, torch.bool)
+
+    def p_pfalse(self, ir, env, live):
+        return self._scalar(False, torch.bool)
+
+    def p_not(self, ir, env, live):
+        return ~self.pv(ir[1], env, live)
+
+    def p_isnilp(self, ir, env, live):
+        return _nilm_arr(self.ev(ir[1], env, live))
+
+    def p_notnilp(self, ir, env, live):
+        return ~_nilm_arr(self.ev(ir[1], env, live))
+
+    def p_inints(self, ir, env, live):
+        _, a_ir, vals, _dt = ir
+        x = self.ev(a_ir, env, live)
+        t = _npdt(x.dtype).type     # values cast to the column's type
+        m = torch.zeros(x.shape, dtype=torch.bool, device=self.device)
+        for v in vals:
+            m = m | (x == t(v).item())
+        return m
+
+    def p_asbool(self, ir, env, live):
+        x = self.ev(ir[1], env, live)
+        return x if x.dtype == torch.bool else x == 1
 
     def p_and(self, ir, env, live):
         parts = [self.pv(p, env, live) for p in ir[1]]
@@ -2437,15 +2854,18 @@ _JOIN_MEMO: Dict[tuple, Dict[int, int]] = {}
 
 #: disk-persisted copy of that memo, keyed by a digest of the naive plan IR
 #: (scan capacities are part of the IR, so datasets never collide).  The
-#: port's own file: MTPU_TORCH_EXPAND_MEMO, default
-#: $TMPDIR/mtpu_torch_expand_memo.json; "0"/"off"/"" disables it.
+#: port's own file: MTPU_TORCH_EXPAND_MEMO, default $TMPDIR/<_MEMO_FILE>;
+#: "0"/"off"/"" disables it.
 _DISK_MEMO: Dict[str, dict] = {}
+
+#: v2: an entry for a join with a non-unique build side now leads to the
+#: expanding plan; a v1 file was written when that plan could not run
+_MEMO_FILE = "mtpu_torch_expand_memo_v2.json"
 
 
 def _memo_path() -> Optional[str]:
     p = os.environ.get("MTPU_TORCH_EXPAND_MEMO",
-                       os.path.join(tempfile.gettempdir(),
-                                    "mtpu_torch_expand_memo.json"))
+                       os.path.join(tempfile.gettempdir(), _MEMO_FILE))
     return None if p in ("0", "off", "") else p
 
 

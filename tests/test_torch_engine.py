@@ -5,7 +5,10 @@ TPC-H Q1-Q6, Q10, Q18, Q19 and Q20 at SF0.01 and SF0.1 (SF0.1's lineitem
 capacity 2^20 is above the 2^17 compaction threshold, so it reaches
 ``r_compact`` and the count-then-retry loop, whose shrunk buckets re-lower
 Q3's and Q20's group-by to the sort strategy), synthetic joins on both
-strategies, LIMIT, LIKE, arithmetic errors, and grouped aggregates.  Strings, decimals, integers and counts must be equal; floats
+strategies with unique and duplicate build keys, LIMIT, LIKE, arithmetic
+errors, and grouped aggregates; the other twelve queries are in
+test_torch_engine_cd.py.  Strings, decimals, integers and counts must be
+equal; floats
 (avg) may differ by rel 1e-12: both sides divide an exact integer sum by a
 power of ten and the count, but torch's CPU kernel divides by a scalar as
 a multiply by its reciprocal, so the last bit can differ.
@@ -30,6 +33,8 @@ from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
 from monetdb_tpu_torch.engine import Engine  # noqa: E402
 from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 from monetdb_tpu_torch.ops import calc as TC  # noqa: E402
+
+from test_torch_cuda import dict_codes, torch_catalog  # noqa: E402
 
 _FLOAT_RTOL = 1e-12
 
@@ -158,11 +163,16 @@ def test_dense_groupby_matches_reference(sql):
 
 
 def test_unported_plan_raises_unsupported():
-    """No fallback executor: a plan outside the slice raises."""
-    eng, _ref = _tables([1], [2], [3])
+    """No fallback executor: a plan still outside the port raises (a
+    string cast needs the executor's parser, a window function has no
+    fragment IR at all)."""
+    eng, _ref = _catalogs({"t": {"s": (["1", "22", None], "str", {}),
+                                 "k": (np.arange(3, dtype=np.int32), "I32",
+                                       {})}})
     with pytest.raises(TF.Unsupported, match="not ported yet"):
-        eng.query("select a from t where k in "
-                  "(select k from t where a > (select avg(b) from t))")
+        eng.query("select cast(s as int) from t")
+    with pytest.raises(TF.Unsupported, match="WinRef"):
+        eng.query("select k, sum(k) over (order by k) from t")
 
 
 # ---------------------------------------------------------------------------
@@ -173,32 +183,22 @@ _NIL32 = int(np.iinfo(np.int32).min)
 
 
 def _catalogs(tables):
-    """{table: {column: (array, type name, props)}} as the same catalog in
-    both packages; a type name is an attribute of either package (I32,
-    ...) or "str" (array of str, None = nil)."""
-    rcat, tcat = R.Catalog(), T.Catalog()
+    """{table: {column: (array, type, props)}} as the same catalog in both
+    packages (see test_torch_cuda.torch_catalog for the types)."""
+    rcat = R.Catalog()
     for name, cols in tables.items():
-        rcols, tcols = {}, {}
+        rcols = {}
         for cn, (arr, kind, props) in cols.items():
             if kind == "str":
-                isnil = np.array([v is None for v in arr])
-                vals = np.array(["" if v is None else v for v in arr])
-                uniq = np.unique(vals[~isnil])
-                codes = np.where(isnil, _NIL32,
-                                 np.searchsorted(uniq, vals)).astype(np.int32)
+                codes, uniq = dict_codes(arr)
                 rcols[cn] = R.Column.from_numpy(
                     codes, R.varchar(), sdict=R.StrDict(uniq), **props)
-                tcols[cn] = T.Column.from_numpy(
-                    codes, T.varchar(), sdict=T.StrDict(uniq), device="cpu",
-                    **props)
             else:
-                rcols[cn] = R.Column.from_numpy(arr, getattr(R, kind),
-                                                **props)
-                tcols[cn] = T.Column.from_numpy(arr, getattr(T, kind),
-                                                device="cpu", **props)
+                typ = R.dtypes.decimal(*kind[1:]) if isinstance(kind, tuple) \
+                    else getattr(R.dtypes, kind)
+                rcols[cn] = R.Column.from_numpy(arr, typ, **props)
         rcat.add(R.Table.from_dict(name, rcols))
-        tcat.add(T.Table.from_dict(name, tcols))
-    return Engine(tcat), RefEngine(rcat)
+    return Engine(torch_catalog(tables, "cpu")), RefEngine(rcat)
 
 
 def _join_tables(span, dup):
@@ -278,17 +278,26 @@ def test_join_matches_reference(strategy, span, kind):
 @pytest.mark.parametrize("strategy,span", [("sort", 10000), ("dense", 100)])
 def test_join_duplicate_build_raises_unsupported(strategy, span, kind):
     """A build side with a duplicate key is flagged on the device and
-    re-lowered as an expanding join, which is not ported yet: the query
-    raises rather than return a wrong row."""
-    eng, _ref = _catalogs(_join_tables(span, dup=True))
+    re-lowered as an expanding join.  (Until the expanding join was ported
+    that raised Unsupported, hence the name; now it must return the
+    reference's rows, among them both matches of the duplicated key.)"""
+    eng, ref = _catalogs(_join_tables(span, dup=True))
     sql = _JOIN_SQL[kind]
     if kind == "left":
         # (an expanding left join takes no cross-side residual at all)
         sql = sql.replace(" and p.v < b.w", "")
     before = TF.STATS["uniq_retries"]
-    with pytest.raises(TF.Unsupported, match="join_expand"):
-        eng.query(sql)
+    got, want = eng.query(sql), ref.query(sql)
     assert TF.STATS["uniq_retries"] == before + 1
+    frag = eng._cached_plan(sql).fragment
+    assert not _join_nodes(frag.rel_ir, []) and \
+        "'join_expand'" in repr(frag.rel_ir)
+    assert got.names == want.names
+    _assert_rows_equal(list(got.rows), list(want.rows))
+    _assert_rows_equal(list(eng.query(sql).rows), list(want.rows))
+    if kind == "left":              # no residual to drop a match
+        ids = [r[0] for r in got.rows]
+        assert len(ids) > len(set(ids)), "a probe row matched twice"
 
 
 def _strings_table():
