@@ -39,13 +39,38 @@ Phases, one or more output lines each:
              capacity and uniqueness retries (re-lowerings after an
              overflowed bucket / a join build side found non-unique).  The
              queries in MUST_LAUNCH must launch seg_sum64.
-7. profile - only with ``--profile``: per query, 5 warm runs under
+7. executor - the same 22 queries with ``fragment_exec`` off, so that each
+             runs through the op-at-a-time executor (exec/executor.py):
+             one cold and 2 warm runs, rows equal to the same oracle
+             (floats to rel 1e-9).  Prints per query the times, peak device
+             memory above the tables and the number of times the host
+             waited for the stream (the executor reads every
+             data-dependent count back, by design).  The executor launches
+             none of the hand-written kernels; the counts must stay 0.
+8. window  - window statements over the resident SF1 tables (each falls
+             back to the executor): ranking, lag/lead, a running sum,
+             full-partition aggregates, a ROWS frame and a RANGE frame with
+             min/max over partsupp (800,000 rows), and a running sum, a
+             RANGE frame and a lag over lineitem (6,001,215 rows,
+             partitioned by l_orderkey); the window sits in a derived
+             table and is aggregated outside.  Expected values from numpy
+             (brute force over each row's neighbours; independent of the
+             port's scans and sparse-table levels).  Then the device times
+             of the window primitives at 2^20 and 2^23 rows.
+9. tpcds   - ``load_tpcds(2,880,404)`` (TPC-DS SF1's store_sales row count)
+             on the card, all 15 queries through ``Engine.query`` with the
+             default config against sqlite3 over the same arrays; Q53, Q89
+             and Q98 must count as fallbacks and the other twelve not.  Q53
+             selects no row at this scale, so its deviation threshold is
+             lowered from 10% to 1% where sqlite3 finds none.
+10. profile - only with ``--profile``: per query, 5 warm runs under
              ``torch.profiler``: host wall, device busy time, kernels per
              query, device idle share, host waits on the stream per query,
-             top kernels by device time; and the host's cost per eager op.
+             top kernels by device time; and the host's cost per eager op;
+             then the same for the executor (3 warm runs).
 
-The launch counts are set to 0 just before phases 5 and 6 and read just
-after.  Then one JSON line with each kernel's launches on its path, error,
+The launch counts are set to 0 just before phases 5, 6, 7, 8 and 9 and read
+just after each.  Then one JSON line with each kernel's launches on its path, error,
 times and bound, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero without that line.
@@ -54,6 +79,8 @@ Any failure raises and exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import math
+import sqlite3
 import statistics
 import subprocess
 import sys
@@ -64,13 +91,17 @@ import warnings
 import numpy as np
 import torch
 
-from monetdb_tpu_torch.bench import tpch_oracle
+from monetdb_tpu_torch import config
+from monetdb_tpu_torch.bench import tpcds, tpch_oracle
 from monetdb_tpu_torch.bench.tpch_gen import gen_tpch
 from monetdb_tpu_torch.bench.tpch_load import load_tpch
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES
+from monetdb_tpu_torch.column import Column
+from monetdb_tpu_torch.dtypes import BOOL, I64
 from monetdb_tpu_torch.engine import Engine
 from monetdb_tpu_torch.exec import fragment
 from monetdb_tpu_torch.ops import cuda_kernels as CK
+from monetdb_tpu_torch.ops import window as W
 
 SF = 1.0
 KERNEL_NS = (1 << 23, 6_001_215)
@@ -91,6 +122,13 @@ SLICE_QUERIES = (1, 6, 2, 3, 4, 5, 19, 20, 10, 18, 7, 8, 9, 11, 12, 13, 14,
 MUST_LAUNCH = (1, 4, 5, 6, 8, 12, 14, 17, 19, 22)
 WARM_RUNS = 5
 AVG_RTOL = 1e-12
+#: the op-at-a-time executor: fewer warm runs (it is the slow path), and
+#: floats to rel 1e-9 (its averages divide in another order than numpy's)
+EXEC_WARM_RUNS = 2
+EXEC_RTOL = 1e-9
+#: TPC-DS SF1's store_sales row count; the generator scales the dimensions
+TPCDS_ROWS = 2_880_404
+TPCDS_FALLBACKS = ("53", "89", "98")
 #: published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: rate, and the float32 rate outside the tensor cores, taken here as the
 #: rate of the integer adds and multiplies these kernels do (the sheet has
@@ -335,7 +373,7 @@ def phase_load(dev):
         took.append(f"Q{q} {time.perf_counter() - t1:.1f}")
     _log(f"load: numpy oracle for {len(want)} queries "
          f"{time.perf_counter() - t0:.2f} s ({', '.join(took)})")
-    return cat, resident, want
+    return cat, resident, want, data
 
 
 def phase_fused(cat, want_q1, q1_entry: dict, gsl_entry: dict) -> None:
@@ -437,27 +475,424 @@ def phase_slice(dev, cat, resident: int, want: dict, entry: dict) -> Engine:
     return eng
 
 
-def host_waits(eng: Engine, q: int):
-    """One warm run of query q with torch's sync debug mode on: (number of
-    times the host waited for the stream, how many of them inside the
-    plan's interpreter).  The interpreter's nodes must add none: a run
-    waits once for the error code, count and totals, and once for each
-    result array."""
+def host_waits(eng: Engine, sql: str):
+    """One warm run of a statement with torch's sync debug mode on: (number
+    of times the host waited for the stream, how many of them inside the
+    plan: the fragment interpreter's ``_run_single`` / ``_run_raw`` or any
+    method of exec/executor.py, whose join and set-operation children run on
+    worker threads, below no ``Executor.run`` frame).  The interpreter's
+    nodes must add none: a run waits once for the error code, count and
+    totals, and once for each result array.  The executor reads every
+    data-dependent count back."""
     in_plan = []
 
     def note(message, category, filename, lineno, file=None, line=None):
-        names = {f.name for f in traceback.extract_stack()}
-        in_plan.append(bool(names & {"_run_single", "_run_raw"}))
+        stack = traceback.extract_stack()
+        in_plan.append(any(
+            f.name in ("_run_single", "_run_raw")
+            or f.filename.endswith("executor.py")
+            for f in stack))
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            list(eng.query(QUERIES[q]).rows)
+            list(eng.query(sql).rows)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return len(in_plan), sum(in_plan)
+
+
+def _zero_launches() -> None:
+    for name in CK.LAUNCHES:
+        CK.LAUNCHES[name] = 0
+
+
+def _no_launches(phase: str) -> None:
+    if any(CK.LAUNCHES.values()):
+        raise AssertionError(f"{phase} launched a hand-written kernel: "
+                             f"{CK.LAUNCHES} (the executor has none)")
+
+
+def phase_executor(dev, eng: Engine, resident: int, want: dict) -> None:
+    """The 22 queries through the op-at-a-time executor."""
+    _zero_launches()                    # the executor path starts here
+    config.set("fragment_exec", False)
+    try:
+        for q in SLICE_QUERIES:
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs0 = fragment.STATS["runs"]
+            times = []
+            for i in range(1 + EXEC_WARM_RUNS):
+                t0 = time.perf_counter()
+                got = list(eng.query(QUERIES[q]).rows)
+                times.append(time.perf_counter() - t0)
+                if i == 0:
+                    rows = got
+                elif tpch_oracle.rows_differ(got, rows, 0.0):
+                    raise AssertionError(f"Q{q}: warm rows differ from cold")
+            diff = tpch_oracle.rows_differ(
+                rows, tpch_oracle.decoded(q, want[q]), EXEC_RTOL)
+            if diff or not rows:
+                raise AssertionError(f"executor Q{q} != oracle: "
+                                     f"{diff or 'no rows'}")
+            if fragment.STATS["runs"] != runs0:
+                raise AssertionError(f"executor Q{q} ran a fragment")
+            peak = torch.cuda.max_memory_allocated(dev) - resident
+            n_waits, n_in_plan = host_waits(eng, QUERIES[q])
+            _log(f"executor: Q{q} SF{SF} rows={len(rows)} equal to oracle; "
+                 f"cold {times[0] * 1e3:.1f} ms, warm "
+                 f"{', '.join(f'{w * 1e3:.2f}' for w in times[1:])} ms "
+                 f"(median {statistics.median(times[1:]) * 1e3:.2f} ms); "
+                 f"host waits {n_waits} ({n_in_plan} inside the executor); "
+                 f"peak device memory above the tables "
+                 f"{peak / 2**20:.1f} MiB")
+    finally:
+        config.reset("fragment_exec")
+    _no_launches("the executor phase")
+
+
+# ---------------------------------------------------------------------------
+# window statements: the numpy oracle works on rows sorted by (partition,
+# order) and looks at each row's neighbours by brute force
+# ---------------------------------------------------------------------------
+
+class _Sorted:
+    """Rows of a table sorted by (partition key, order key)."""
+
+    def __init__(self, part: np.ndarray, order: np.ndarray):
+        self.perm = np.lexsort((order, part))
+        self.part = part[self.perm]
+        self.order = order[self.perm]
+        n = len(part)
+        self.idx = np.arange(n)
+        self.bound = np.r_[True, self.part[1:] != self.part[:-1]]
+        self.start = np.maximum.accumulate(
+            np.where(self.bound, self.idx, 0))
+        self.pid = np.cumsum(self.bound) - 1
+        self.starts = np.flatnonzero(self.bound)
+        self.size = np.diff(np.r_[self.starts, n])[self.pid]
+
+    def col(self, arr):
+        return arr[self.perm]
+
+    def neighbours(self, max_dist: int):
+        """(offset, mask of rows whose neighbour at that offset lies in
+        the same partition) for every offset in [-max_dist, max_dist]."""
+        n = len(self.part)
+        for d in range(-max_dist, max_dist + 1):
+            j = self.idx + d
+            ok = (j >= 0) & (j < n)
+            ok[ok] &= self.pid[j[ok]] == self.pid[ok]
+            yield d, ok, np.clip(j, 0, n - 1)
+
+
+def _checksums(w, k):
+    """(sum(w), sum(w * (k % 7)), count(w)) with None for nil (NaN)."""
+    live = ~np.isnan(w) if w.dtype.kind == "f" else np.ones(len(w), bool)
+    wl, kl = w[live], k[live]
+    if w.dtype.kind == "f":
+        return float(wl.sum()), float((wl * (kl % 7)).sum()), int(live.sum())
+    return int(wl.sum()), int((wl * (kl % 7)).sum()), int(live.sum())
+
+
+_CHECK = ("select sum(w) as s, sum(w * (k % 7)) as s7, count(w) as c "
+          "from (select {win} as w, {key} as k from {table}) t")
+
+
+def _window_cases(data):
+    """[(name, SQL, expected checksum row, decimal scale of the window
+    value)].  The generated arrays hold decimals as their physical
+    integers (hundredths); the SQL's decimal results are compared in the
+    same integers."""
+    ps = data["partsupp"]
+    s = _Sorted(ps["ps_partkey"], ps["ps_suppkey"])
+    qty = s.col(ps["ps_availqty"]).astype(np.int64)
+    cost = s.col(ps["ps_supplycost"]).astype(np.int64)
+    key = s.col(ps["ps_suppkey"]).astype(np.int64)
+    part = "partition by ps_partkey"
+    po = part + " order by ps_suppkey"
+    cases = []
+
+    def add(name, win, w, table="partsupp", k="ps_suppkey", kv=None,
+            scale=0):
+        cases.append((name, _CHECK.format(win=win, key=k, table=table),
+                      _checksums(w, key if kv is None else kv), scale))
+
+    rn = s.idx - s.start + 1
+    add("row_number", f"row_number() over ({po})", rn)
+    # rank by availqty descending within the part: 1 + rows of the
+    # partition with a larger quantity
+    rk = np.ones(len(qty), np.int64)
+    for d, ok, j in s.neighbours(8):
+        rk += ok & (qty[j] > qty)
+    add("rank", f"rank() over ({part} order by ps_availqty desc)", rk)
+    lag = np.full(len(qty), np.nan)
+    lead = np.full(len(qty), np.nan)
+    for d, ok, j in s.neighbours(1):
+        if d == -1:
+            lag[ok] = qty[j][ok]
+        if d == 1:
+            lead[ok] = qty[j][ok]
+    add("lag", f"lag(ps_availqty) over ({po})", lag)
+    add("lead", f"lead(ps_availqty) over ({po})", lead)
+    cs = np.cumsum(qty)
+    run = cs - np.where(s.start > 0, cs[s.start - 1], 0)
+    add("running_sum", f"sum(ps_availqty) over ({po})", run)
+    tot = np.add.reduceat(cost, s.starts)[s.pid]
+    add("full_sum_decimal", f"sum(ps_supplycost) over ({part})", tot,
+        scale=2)
+    add("full_avg", f"avg(ps_supplycost) over ({part})",
+        tot / 100.0 / s.size)
+    add("full_max", f"max(ps_supplycost) over ({part})",
+        np.maximum.reduceat(cost, s.starts)[s.pid], scale=2)
+    add("full_count", f"count(*) over ({part})", s.size.astype(np.int64))
+    rows = np.zeros(len(qty), np.int64)
+    for d, ok, j in s.neighbours(2):
+        if -2 <= d <= 1:
+            rows += np.where(ok, qty[j], 0)
+    add("rows_frame_sum", f"sum(ps_availqty) over ({po} rows between 2 "
+        f"preceding and 1 following)", rows)
+    # RANGE over the order key: suppliers of a part lie 2500 apart at SF1
+    span = 3000
+    lo = qty.copy()
+    hi = cost.copy()
+    for d, ok, j in s.neighbours(8):
+        near = ok & (np.abs(key[j] - key) <= span)
+        lo = np.where(near, np.minimum(lo, qty[j]), lo)
+        hi = np.where(near, np.maximum(hi, cost[j]), hi)
+    rng = f"range between {span} preceding and {span} following"
+    add("range_frame_min", f"min(ps_availqty) over ({po} {rng})", lo)
+    add("range_frame_max", f"max(ps_supplycost) over ({po} {rng})", hi,
+        scale=2)
+
+    li = data["lineitem"]
+    s = _Sorted(li["l_orderkey"], li["l_linenumber"])
+    lq = s.col(li["l_quantity"]).astype(np.int64)     # hundredths
+    ln = s.col(li["l_linenumber"]).astype(np.int64)
+    cs = np.cumsum(lq)
+    run = cs - np.where(s.start > 0, cs[s.start - 1], 0)
+    lpo = "partition by l_orderkey order by l_linenumber"
+    # the shape of TPC-DS Q89: a window in a derived table, filtered and
+    # aggregated outside
+    big = run > 100_00
+    cases.append((
+        "lineitem_running_sum_filtered",
+        f"select sum(run) as s, sum(l_linenumber) as sl, count(*) as c "
+        f"from (select l_linenumber, sum(l_quantity) over ({lpo}) as run "
+        f"from lineitem) t where run > 100",
+        (int(run[big].sum()), int(ln[big].sum()) * 100, int(big.sum())),
+        2))
+    lagq = np.full(len(lq), np.nan)
+    for d, ok, j in s.neighbours(2):
+        if d == -2:
+            lagq[ok] = lq[j][ok]
+    add("lineitem_lag2", f"lag(l_quantity, 2) over ({lpo})", lagq,
+        table="lineitem", k="l_linenumber", kv=ln, scale=2)
+    # RANGE over shipdate within the order: at most 7 lines an order
+    s2 = _Sorted(li["l_orderkey"],
+                 li["l_shipdate"].astype("datetime64[D]").astype(np.int64))
+    ext = s2.col(li["l_extendedprice"]).astype(np.int64)
+    ln2 = s2.col(li["l_linenumber"]).astype(np.int64)
+    mx = ext.copy()
+    for d, ok, j in s2.neighbours(7):
+        near = ok & (np.abs(s2.order[j] - s2.order) <= 30)
+        mx = np.where(near, np.maximum(mx, ext[j]), mx)
+    add("lineitem_range_frame_max",
+        "max(l_extendedprice) over (partition by l_orderkey order by "
+        "l_shipdate range between 30 preceding and 30 following)", mx,
+        table="lineitem", k="l_linenumber", kv=ln2, scale=2)
+    return cases
+
+
+def _scaled(v, scale: int):
+    """A result cell as a physical number: decimals and integers times
+    10^scale, floats as they are."""
+    if v is None or isinstance(v, float):
+        return v
+    return int(v.scaleb(scale)) if hasattr(v, "scaleb") \
+        else int(v) * 10 ** scale
+
+
+def phase_window(dev, eng: Engine, resident: int, data) -> None:
+    t0 = time.perf_counter()
+    cases = _window_cases(data)
+    _log(f"window: numpy oracle for {len(cases)} statements "
+         f"{time.perf_counter() - t0:.2f} s")
+    _zero_launches()                    # the window path starts here
+    for name, sql, want, scale in cases:
+        torch.cuda.reset_peak_memory_stats(dev)
+        falls0 = fragment.STATS["fallbacks"]
+        times = []
+        for _ in range(1 + EXEC_WARM_RUNS):
+            t0 = time.perf_counter()
+            rows = list(eng.query(sql).rows)
+            times.append(time.perf_counter() - t0)
+        if fragment.STATS["fallbacks"] - falls0 != 1 + EXEC_WARM_RUNS:
+            raise AssertionError(f"window {name}: expected one fallback a "
+                                 f"run")
+        if len(rows) != 1:
+            raise AssertionError(f"window {name}: {len(rows)} rows")
+        # the two sums carry the window value's scale (the second
+        # multiplies it by an integer); the count is an integer
+        got = tuple(_scaled(v, scale) for v in rows[0][:2]) + \
+            (_scaled(rows[0][2], 0),)
+        for g, w in zip(got, want):
+            ok = (np.isclose(g, w, rtol=EXEC_RTOL, atol=0)
+                  if isinstance(w, float) else g == w)
+            if not ok:
+                raise AssertionError(f"window {name}: {got} != numpy "
+                                     f"{want}")
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        n_waits, n_in_plan = host_waits(eng, sql)
+        _log(f"window: {name} equal to numpy {want}; cold "
+             f"{times[0] * 1e3:.1f} ms, warm "
+             f"{', '.join(f'{w * 1e3:.2f}' for w in times[1:])} ms; host "
+             f"waits {n_waits} ({n_in_plan} inside the executor); peak "
+             f"device memory above the tables {peak / 2**20:.1f} MiB")
+    _no_launches("the window phase")
+
+
+def phase_window_primitives(dev) -> None:
+    """Device times of the window primitives (ops/window.py) at 2^20 and
+    2^23 rows, partitions of 1 to 7 rows, by CUDA events."""
+    for n in (1 << 20, 1 << 23):
+        g = torch.Generator(device=dev).manual_seed(n)
+        part = torch.cumsum(torch.rand(n, generator=g, device=dev) < 0.25,
+                            0)
+        bound = W._multi_boundary((part,), n)
+        order = torch.cumsum(torch.randint(0, 40, (n,), generator=g,
+                                           device=dev), 0)
+        v = torch.randint(-1000, 1000, (n,), generator=g, device=dev)
+        pb = Column(BOOL, bound, n)
+        col = Column(I64, v, n)
+        size, pid = W._part_size(bound, n)
+        start = W._seg_start(bound, pid)
+        end = start + size
+        n_iter = math.ceil(math.log2(n)) + 1
+        timed = {
+            "_seg_start": lambda: W._seg_start(bound),
+            "_next_start": lambda: W._next_start(bound),
+            "cummax (the running max it replaces)":
+                lambda: torch.cummax(torch.where(bound, torch.arange(
+                    n, device=dev), 0), 0),
+            "_seg_scan sum int64": lambda: W._seg_scan(v, bound, op="sum"),
+            "_seg_scan max int64": lambda: W._seg_scan(v, bound, op="max"),
+            "_seg_scan sum float64":
+                lambda: W._seg_scan(v.double(), bound, op="sum"),
+            "_part_lower_bound (RANGE bound search)":
+                lambda: W._part_lower_bound(order, start, end, order - 30,
+                                            n_iter=n_iter, strict=False),
+            "framed_agg max RANGE 30 preceding..30 following":
+                lambda: W.framed_agg("max", col, pb, order, "range", -30,
+                                     30, n),
+            "framed_agg max ROWS 2 preceding..1 following":
+                lambda: W.framed_agg("max", col, pb, None, "rows", -2, 1,
+                                     n),
+            "windowed_agg max running": lambda: W.windowed_agg(
+                "max", col, pb, None, "rows", n),
+        }
+        for name, fn in timed.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ms = time_cuda(fn, reps=5, warmup=1)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            _log(f"window-primitive: n={n} {name}: {ms:.3f} ms, peak "
+                 f"{peak / 2**20:.0f} MiB above its inputs")
+
+
+def _sqlite_of(data, queries) -> sqlite3.Connection:
+    """The generated arrays as an in-memory sqlite database: only the
+    columns the statements name, inserted in chunks.  A dense surrogate key
+    (1..n) is declared the table's primary key, so that sqlite scans the
+    fact table once and looks each dimension row up by rowid; without it
+    one star join over 2,880,404 rows takes most of a minute."""
+    text = " ".join(queries.values())
+    con = sqlite3.connect(":memory:")
+    for tname, cols in data.items():
+        names = [c for c in cols if c in text] or list(cols)[:1]
+        n = len(cols[names[0]])
+        decl = [f"{c} integer primary key" if c == names[0] and np.array_equal(
+            cols[c], np.arange(1, n + 1)) else c for c in names]
+        con.execute(f"create table {tname} ({', '.join(decl)})")
+        ins = f"insert into {tname} values ({','.join('?' * len(names))})"
+        for lo in range(0, n, 200_000):
+            con.executemany(ins, zip(*(cols[c][lo:lo + 200_000].tolist()
+                                       for c in names)))
+    con.commit()
+    con.execute("analyze")
+    return con
+
+
+def _ds_cell_differs(g, w) -> bool:
+    if isinstance(g, float) or isinstance(w, float):
+        if g is None or w is None:
+            return g is not w
+        return not np.isclose(float(g), float(w), rtol=EXEC_RTOL,
+                              atol=EXEC_RTOL)
+    return g != w
+
+
+def phase_tpcds(dev, seg_entry: dict) -> None:
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated(dev)
+    cat, data = tpcds.load_tpcds(TPCDS_ROWS, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    _log(f"tpcds: load_tpcds({TPCDS_ROWS}, device={dev}) "
+         f"{time.perf_counter() - t0:.2f} s, store_sales "
+         f"{cat.get('store_sales').count} rows, item "
+         f"{cat.get('item').count}, customer {cat.get('customer').count}; "
+         f"tables resident {(resident - base) / 2**20:.1f} MiB")
+    t0 = time.perf_counter()
+    con = _sqlite_of(data, tpcds.QUERIES)
+    _log(f"tpcds: sqlite3 load {time.perf_counter() - t0:.2f} s")
+    eng = Engine(cat)
+    _zero_launches()                    # the TPC-DS path starts here
+    for qid in sorted(tpcds.QUERIES, key=int):
+        sql = tpcds.QUERIES[qid]
+        t0 = time.perf_counter()
+        want = [tuple(r) for r in con.execute(sql).fetchall()]
+        if not want and qid == "53":
+            # at this scale no quarter of a manufacturer lies 10% off its
+            # average (each sums over a thousand sales); hold the window to
+            # the oracle at 1% instead, where rows come out
+            sql = sql.replace("> 0.1", "> 0.01")
+            want = [tuple(r) for r in con.execute(sql).fetchall()]
+        t_oracle = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        falls0 = fragment.STATS["fallbacks"]
+        before = CK.LAUNCHES["seg_sum64"]
+        times = []
+        for _ in range(1 + EXEC_WARM_RUNS):
+            t0 = time.perf_counter()
+            rows = list(eng.query(sql).rows)
+            times.append(time.perf_counter() - t0)
+        fell = fragment.STATS["fallbacks"] - falls0
+        expect = (1 + EXEC_WARM_RUNS) if qid in TPCDS_FALLBACKS else 0
+        if fell != expect:
+            raise AssertionError(f"tpcds Q{qid}: {fell} fallbacks, "
+                                 f"expected {expect}")
+        got = [tuple(float(v) if hasattr(v, "scaleb") else v for v in r)
+               for r in rows]
+        if len(got) != len(want) or not want or any(
+                len(g) != len(w) or any(map(_ds_cell_differs, g, w))
+                for g, w in zip(got, want)):
+            raise AssertionError(f"tpcds Q{qid} != sqlite3: {len(got)} vs "
+                                 f"{len(want)} rows; {got[:3]} vs "
+                                 f"{want[:3]}")
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        _log(f"tpcds: Q{qid} rows={len(rows)} equal to sqlite3 "
+             f"({t_oracle:.1f} s there); "
+             f"{'executor (fallback)' if expect else 'fragment'}; cold "
+             f"{times[0] * 1e3:.1f} ms, warm "
+             f"{', '.join(f'{w * 1e3:.2f}' for w in times[1:])} ms; "
+             f"seg_sum64 launches {CK.LAUNCHES['seg_sum64'] - before}; peak "
+             f"device memory above the tables {peak / 2**20:.1f} MiB")
+    seg_entry["launches_tpcds"] = CK.LAUNCHES["seg_sum64"]
+    if seg_entry["launches_tpcds"] <= 0:
+        raise AssertionError("the TPC-DS fragments launched no seg_sum64")
 
 
 def phase_profile(dev, eng: Engine) -> None:
@@ -473,46 +908,58 @@ def phase_profile(dev, eng: Engine) -> None:
     per_op = (time.perf_counter() - t0) / 2000 * 1e6
     torch.cuda.synchronize()
     _log(f"profile: host cost per eager op {per_op:.2f} us")
-    for q in SLICE_QUERIES:
+    for executor, q in [(False, q) for q in SLICE_QUERIES] + \
+            [(True, q) for q in SLICE_QUERIES]:
+        _profile_query(eng, q, executor, profile,
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       DeviceType)
+
+
+def _profile_query(eng, q, executor: bool, profile, activities,
+                   DeviceType) -> None:
+    runs = EXEC_WARM_RUNS + 1 if executor else WARM_RUNS
+    config.set("fragment_exec", not executor)
+    try:
         plain = []
-        for _ in range(WARM_RUNS):
+        for _ in range(runs):
             t0 = time.perf_counter()
             list(eng.query(QUERIES[q]).rows)
             plain.append(time.perf_counter() - t0)
-        n_waits, n_in_plan = host_waits(eng, q)
-        if n_in_plan:
+        n_waits, n_in_plan = host_waits(eng, QUERIES[q])
+        if n_in_plan and not executor:
             raise AssertionError(f"Q{q}: {n_in_plan} host waits inside "
                                  f"the interpreter")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            for _ in range(WARM_RUNS):
+            for _ in range(runs):
                 list(eng.query(QUERIES[q]).rows)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / WARM_RUNS
-        # device-side events only: an operator's row repeats the time of
-        # the kernels it launched
-        averages = prof.key_averages()
-        kernels = [(a.key, a.self_device_time_total, a.count)
-                   for a in averages if a.device_type == DeviceType.CUDA]
-        # the profiler's own count of the runtime calls behind the waits
-        host = {a.key: a.count / WARM_RUNS for a in averages
-                if a.device_type == DeviceType.CPU}
-        waits = f"host waits {n_waits} (0 in the interpreter), " + \
-            ", ".join(f"{k} {host.get(k, 0):.1f}" for k in (
-                "cudaStreamSynchronize", "aten::item", "cudaMemcpyAsync"))
-        busy = sum(t for _k, t, _c in kernels) / WARM_RUNS / 1e3
-        count = sum(c for _k, _t, c in kernels) / WARM_RUNS
-        kernels.sort(key=lambda k: -k[1])
-        top = ", ".join(f"{k[:48]} {t / WARM_RUNS / 1e3:.3f} ms x{c // WARM_RUNS}"
-                        for k, t, c in kernels[:5])
-        med = statistics.median(plain) * 1e3
-        _log(f"profile: Q{q} warm median {med:.2f} ms unprofiled (idle "
-             f"share {1 - busy / med:.2f}); profiled wall "
-             f"{wall * 1e3:.2f} ms (idle share "
-             f"{1 - busy / (wall * 1e3):.2f}), device busy {busy:.3f} ms, "
-             f"device activities {count:.0f} a query; {waits} a query; "
-             f"top: {top}")
+            wall = (time.perf_counter() - t0) / runs
+    finally:
+        config.reset("fragment_exec")
+    # device-side events only: an operator's row repeats the time of the
+    # kernels it launched
+    averages = prof.key_averages()
+    kernels = [(a.key, a.self_device_time_total, a.count)
+               for a in averages if a.device_type == DeviceType.CUDA]
+    # the profiler's own count of the runtime calls behind the waits
+    host = {a.key: a.count / runs for a in averages
+            if a.device_type == DeviceType.CPU}
+    waits = f"host waits {n_waits} ({n_in_plan} inside the plan), " + \
+        ", ".join(f"{k} {host.get(k, 0):.1f}" for k in (
+            "cudaStreamSynchronize", "aten::item", "cudaMemcpyAsync"))
+    busy = sum(t for _k, t, _c in kernels) / runs / 1e3
+    count = sum(c for _k, _t, c in kernels) / runs
+    kernels.sort(key=lambda k: -k[1])
+    top = ", ".join(f"{k[:48]} {t / runs / 1e3:.3f} ms x{c // runs}"
+                    for k, t, c in kernels[:5])
+    med = statistics.median(plain) * 1e3
+    _log(f"profile: {'executor ' if executor else ''}Q{q} warm median "
+         f"{med:.2f} ms unprofiled (idle share {1 - busy / med:.2f}); "
+         f"profiled wall {wall * 1e3:.2f} ms (idle share "
+         f"{1 - busy / (wall * 1e3):.2f}), device busy {busy:.3f} ms, "
+         f"device activities {count:.0f} a query; {waits} a query; "
+         f"top: {top}")
 
 
 def main(argv) -> int:
@@ -525,11 +972,17 @@ def main(argv) -> int:
     seg = phase_kernel_seg_sum64(dev)
     q1, gsl = phase_kernel_fused(dev)
     torch.cuda.empty_cache()
-    cat, resident, want = phase_load(dev)
+    cat, resident, want, data = phase_load(dev)
     phase_fused(cat, want[1], q1, gsl)
     eng = phase_slice(dev, cat, resident, want, seg)
+    phase_executor(dev, eng, resident, want)
+    phase_window(dev, eng, resident, data)
+    phase_window_primitives(dev)
     if "--profile" in argv:
         phase_profile(dev, eng)
+    del eng, cat, data, want
+    torch.cuda.empty_cache()
+    phase_tpcds(dev, seg)
     _log(json.dumps({"kernels": [seg, q1, gsl]}))
     _log(json.dumps({"ok": True, "device": device}))
     return 0

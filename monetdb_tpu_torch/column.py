@@ -21,9 +21,9 @@ import numpy as np
 import torch
 
 from . import config
-from .dtypes import SQLType
+from .dtypes import Kind, SQLType, varchar
 
-__all__ = ["Column", "Cand", "StrDict", "capacity_for"]
+__all__ = ["Column", "Cand", "StrDict", "capacity_for", "valid_mask"]
 
 
 def capacity_for(n: int) -> int:
@@ -32,6 +32,11 @@ def capacity_for(n: int) -> int:
     if n <= floor:
         return floor
     return 1 << math.ceil(math.log2(n))
+
+
+def valid_mask(cap: int, count, device) -> torch.Tensor:
+    """Boolean mask selecting the live prefix of a padded device tensor."""
+    return torch.arange(cap, dtype=torch.int32, device=device) < count
 
 
 def _pad_np(arr: np.ndarray, cap: int, fill) -> np.ndarray:
@@ -95,21 +100,87 @@ class StrDict:
 
 
 # ---------------------------------------------------------------------------
-# Candidates (only the 'all' kind: Table.all_cand)
+# Candidates
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class Cand:
-    """Candidate set over ``base_count`` rows; the port has only the
-    every-live-row kind so far (the reference's absent-candidate case)."""
+    """Candidate set over ``base_count`` rows of an aligned column family.
+
+    kind 'all'   — every live row (the absent-candidate fast path)
+    kind 'dense' — contiguous rows [lo, hi)  (reference: void candidates)
+    kind 'mask'  — device bool mask of base capacity (reference: TYPE_msk)
+    kind 'oids'  — device int64 row ids, sorted ascending (reference: oid BAT)
+    """
 
     kind: str
     base_count: int
+    lo: int = 0
+    hi: int = 0
+    mask: Optional[torch.Tensor] = None
+    oids: Optional[torch.Tensor] = None
+    oid_count: Optional[int] = None  # host count for kind 'oids'
 
+    # -- constructors -------------------------------------------------------
     @staticmethod
     def all(base_count: int) -> "Cand":
         return Cand("all", base_count)
+
+    @staticmethod
+    def dense(base_count: int, lo: int, hi: int) -> "Cand":
+        lo = max(0, lo)
+        hi = min(base_count, hi)
+        if hi < lo:
+            hi = lo
+        return Cand("dense", base_count, lo=lo, hi=hi)
+
+    @staticmethod
+    def from_mask(mask: torch.Tensor, base_count: int) -> "Cand":
+        return Cand("mask", base_count, mask=mask)
+
+    @staticmethod
+    def from_oids(oids: torch.Tensor, count: int, base_count: int) -> "Cand":
+        return Cand("oids", base_count, oids=oids, oid_count=count)
+
+    # -- conversions --------------------------------------------------------
+    def as_mask(self, cap: int, device) -> torch.Tensor:
+        """Bool mask of length cap on ``device`` (True = selected live row);
+        the 'mask' and 'oids' kinds must already live there."""
+        if self.kind == "mask":
+            m = self.mask
+            if m.shape[0] != cap:
+                if m.shape[0] > cap:
+                    m = m[:cap]
+                else:
+                    m = torch.nn.functional.pad(m, (0, cap - m.shape[0]))
+            return m
+        if self.kind == "oids":
+            # oids → mask via scatter; dead slots write False to the last row
+            oid = self.oids
+            live = valid_mask(oid.shape[0], self.oid_count, oid.device)
+            safe = torch.where(live, oid, cap - 1).to(torch.int64)
+            m = torch.zeros(cap, dtype=torch.uint8, device=oid.device)
+            m.scatter_reduce_(0, safe, live.to(torch.uint8), reduce="amax")
+            return m.to(torch.bool)
+        io = torch.arange(cap, dtype=torch.int64, device=device)
+        if self.kind == "all":
+            return io < self.base_count
+        return (io >= self.lo) & (io < self.hi)
+
+    def count(self) -> int:
+        """Host row count (one device read for the mask kind)."""
+        if self.kind == "all":
+            return self.base_count
+        if self.kind == "dense":
+            return self.hi - self.lo
+        if self.kind == "oids":
+            return self.oid_count
+        return int(self.mask.sum())
+
+    def is_all(self) -> bool:
+        return self.kind == "all" or (
+            self.kind == "dense" and self.lo == 0 and self.hi == self.base_count)
 
 
 # ---------------------------------------------------------------------------
@@ -156,15 +227,36 @@ class Column:
         data = torch.from_numpy(padded).to(device)
         return Column(typ, data, n, nonil=nonil, sdict=sdict, **props)
 
+    @staticmethod
+    def from_strings(strings, typ: Optional[SQLType] = None, *, device,
+                     **props) -> "Column":
+        sd, codes = StrDict.encode(np.asarray(strings, dtype=object).astype(str))
+        return Column.from_numpy(codes, typ or varchar(), sdict=sd,
+                                 device=device, **props)
+
+    @staticmethod
+    def from_device(data: torch.Tensor, typ: SQLType, count: int,
+                    sdict: Optional[StrDict] = None, **props) -> "Column":
+        return Column(typ, data, count, sdict=sdict, **props)
+
     @property
     def cap(self) -> int:
         return self.data.shape[0]
 
+    def live_mask(self) -> torch.Tensor:
+        return valid_mask(self.cap, self.count, self.data.device)
+
+    def head(self, n: int = 10) -> np.ndarray:
+        return self.data[: min(n, self.count)].cpu().numpy()
+
     def to_numpy(self, decode: bool = True):
         raw = self.data[: self.count].cpu().numpy()
-        if decode and self.sdict is not None:
+        if decode and self.typ.kind == Kind.STR and self.sdict is not None:
             return self.sdict.decode(raw)
         return raw
+
+    def with_props(self, **props) -> "Column":
+        return dataclasses.replace(self, **props)
 
     def __len__(self):
         return self.count

@@ -14,8 +14,26 @@ _defaults: Dict[str, Any] = {
     # raise on integer/decimal overflow like the reference's BATcalc*
     # (gdk/gdk_calc_addsub.c ON_OVERFLOW macros)
     "overflow_checks": True,
+    # lower whole plans into one fragment when supported (exec/fragment.py);
+    # a plan the fragment rejects runs op-at-a-time (exec/executor.py)
+    "fragment_exec": True,
     # smallest bucketed capacity of a device column (column.capacity_for)
     "min_capacity": 1024,
+    # number of rows below which group-by takes the sort path unconditionally
+    "small_sort_threshold": 1 << 14,
+    # observability
+    "trace": False,
+    # GDKdebug-style runtime property assertions (BATassertProps,
+    # gdk/gdk_bat.c): validate every operator output's claimed flags
+    # (sorted/key/nonil/min/max); a wrong flag fails loudly instead of
+    # silently picking a wrong fast path. Env: MTPU_ASSERT_PROPS=1.
+    "assert_props": False,
+    # dataflow scheduler (mal_dataflow.c DFLOWworker pool analog):
+    # worker threads for independent plan subtrees; 0/1 = sequential
+    "dataflow_workers": 4,
+    # admission-control memory pool in bytes (mal_resource.c memorypool);
+    # tasks whose estimated footprint exceeds the free pool are delayed
+    "mem_maxsize": 4 << 30,
 }
 
 _values: Dict[str, Any] = {}

@@ -2,11 +2,12 @@
 engine.py (the reference's session scenario, sql/backends/monet5/
 sql_scenario.c SQLengine: parse → rel → optimize → codegen → run → export).
 
-Every query runs through the fused-fragment interpreter
-(exec/fragment.py) on the device that holds the catalog's tensors.  The
-reference falls back to its op-at-a-time ``Executor`` for plans the
-fragment rejects; that executor is not ported yet, so here such a plan
-raises ``Unsupported`` instead.
+A query runs through the fused-fragment interpreter (exec/fragment.py) on
+the device that holds the catalog's tensors.  A plan the fragment rejects,
+at lowering or at run time, runs through the op-at-a-time ``Executor``
+(exec/executor.py) on the same device and counts in
+``exec.fragment.STATS["fallbacks"]``; ``config.set("fragment_exec", False)``
+sends every plan there.
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ from typing import List, Optional
 import numpy as np
 
 from .dtypes import Kind, SQLType
-from .exec.fragment import CompiledFragment, Unsupported
+from . import config
+from .exec.executor import ExecError, Executor
+from .exec.fragment import CompiledFragment, Unsupported, stats_inc
 from .sql.binder import bind_select
 from .table import Catalog
 
-__all__ = ["Engine", "Result", "Unsupported"]
+__all__ = ["Engine", "Result", "Unsupported", "ExecError"]
 
 
 # ---------------------------------------------------------------------------
@@ -46,11 +49,16 @@ _PLAN_VARIANTS = 4     # catalog snapshots per SQL text
 class _CachedPlan:
     tables: dict           # name -> Table identity pins
     views: dict
+    rel: object
     out_cols: list
-    fragment: CompiledFragment
+    fragment: Optional[CompiledFragment]   # None = executor only
+    unsupported: Optional[str]   # lowering-time fallback reason
+    frag_enabled: bool = True    # fragment_exec config at bind time
 
 
 def _plan_valid(e: _CachedPlan, cat: Catalog) -> bool:
+    if e.frag_enabled != bool(config.get("fragment_exec")):
+        return False
     if len(e.tables) != len(cat.tables) or e.views != cat.views:
         return False
     return all(cat.tables.get(k) is v for k, v in e.tables.items())
@@ -116,9 +124,9 @@ class Result:
     names: List[str]
     types: List[SQLType]
     rows: List[tuple]
-    trace: Optional[list] = None   # fragment events when trace=True
-    #: physical numpy columns [(array, typ, sdict), ...] when the result
-    #: has no wide sums
+    trace: Optional[list] = None   # profiler events when trace=True
+    #: physical numpy columns [(array, typ, sdict), ...] when the plan ran
+    #: through the fragment with no wide sums
     raw: Optional[list] = None
 
     def __len__(self):
@@ -200,15 +208,24 @@ def _decode_wide(lo: np.ndarray, hi: np.ndarray, typ) -> list:
     return out
 
 
+def _decode_column(col) -> list:
+    raw = col.data[: col.count].cpu().numpy()
+    return _decode_np(raw, col.typ, col.sdict)
+
+
 class Engine:
     """SQL in, rows out, on the device that holds ``catalog``'s tensors."""
 
     def __init__(self, catalog: Catalog):
         self.catalog = catalog
 
+    def plan(self, sql: str):
+        return bind_select(self.catalog, sql)
+
     def _cached_plan(self, sql: str) -> _CachedPlan:
-        """Bind + lower once per (SQL text, catalog snapshot).  A plan the
-        fragment cannot lower raises Unsupported and is not cached."""
+        """Bind + lower once per (SQL text, catalog snapshot) - the
+        reference's query cache (sql_qc.c qc entries keyed by query text,
+        invalidated on DDL)."""
         with _PLAN_LOCK:
             entries = _PLAN_CACHE.get(sql)
             if entries is not None:
@@ -217,10 +234,17 @@ class Engine:
                     if _plan_valid(e, self.catalog):
                         return e
         rel, out_cols = bind_select(self.catalog, sql)
-        fragment = CompiledFragment(self.catalog, rel,
-                                    [c.name for c in out_cols])
+        fragment = unsupported = None
+        frag_enabled = bool(config.get("fragment_exec"))
+        if frag_enabled:
+            try:
+                fragment = CompiledFragment(self.catalog, rel,
+                                            [c.name for c in out_cols])
+            except Unsupported as exc:
+                unsupported = str(exc)
         entry = _CachedPlan(dict(self.catalog.tables),
-                            dict(self.catalog.views), out_cols, fragment)
+                            dict(self.catalog.views), rel, out_cols,
+                            fragment, unsupported, frag_enabled=frag_enabled)
         with _PLAN_LOCK:
             lst = _PLAN_CACHE.setdefault(sql, [])
             lst[:] = [e for e in lst if _plan_valid(e, self.catalog)]
@@ -232,16 +256,61 @@ class Engine:
         return entry
 
     def query(self, sql: str, trace: bool = False) -> Result:
-        plan = self._cached_plan(sql)
-        return self._run_fragment(plan.fragment, plan.out_cols, trace=trace)
+        return self.query_stmt(sql, trace=trace)
 
-    def _run_fragment(self, fragment, out_cols, trace: bool) -> Result:
+    def query_stmt(self, sql_or_stmt, trace: bool = False) -> Result:
+        if isinstance(sql_or_stmt, str):
+            plan = self._cached_plan(sql_or_stmt)
+            return self._execute_cached(plan, trace=trace)
+        rel, out_cols = bind_select(self.catalog, sql_or_stmt)
+        return self.execute_plan(rel, out_cols, trace=trace)
+
+    def _execute_cached(self, plan: _CachedPlan, trace: bool) -> Result:
+        if plan.fragment is not None and bool(config.get("fragment_exec")):
+            res = self._run_fragment(plan.fragment, plan.out_cols,
+                                     trace=trace)
+            if res is not None:
+                return res
+        return self._run_executor(plan.rel, plan.out_cols, trace=trace,
+                                  why=plan.unsupported)
+
+    def execute_plan(self, rel, out_cols, trace: bool = False) -> Result:
+        """Fast path: the whole plan lowers to ONE fragment
+        (exec/fragment.py), like the reference's compiled MAL program
+        (mal_interpreter.c:491).  Plans outside the fragment compiler take
+        the op-at-a-time executor.
+
+        TRACE mode mirrors the reference's SQLsetTrace
+        (sql/backends/monet5/sql_execute.c:61) and measures the path that
+        actually runs: fragment plans emit per-fragment events, fallback
+        plans per-operator events."""
+        if bool(config.get("fragment_exec")):
+            why = None
+            try:
+                fragment = CompiledFragment(self.catalog, rel,
+                                            [c.name for c in out_cols])
+            except Unsupported as exc:
+                why = str(exc)
+            else:
+                res = self._run_fragment(fragment, out_cols, trace=trace)
+                if res is not None:
+                    return res
+            return self._run_executor(rel, out_cols, trace=trace, why=why)
+        return self._run_executor(rel, out_cols, trace=trace)
+
+    def _run_fragment(self, fragment, out_cols,
+                      trace: bool) -> Optional[Result]:
+        """Run a lowered fragment; None = fall back to the executor."""
         events = [] if trace else None
         names = [getattr(c, "display", None) or c.name for c in out_cols]
         if trace:
             events.append({"op": "fragment.lower",
                            "usec": int(fragment.lower_ms * 1e3)})
-        fr = fragment.run(events=events)
+        try:
+            fr = fragment.run(events=events)
+        except Unsupported:
+            stats_inc("fallbacks")
+            return None
 
         def make_rows():
             decoded = [
@@ -258,3 +327,25 @@ class Engine:
                    for a, pt in zip(fr.arrays, fr.pts)]
         return Result(names, [c.typ for c in out_cols],
                       _LazyRows(make_rows, fr.count), trace=events, raw=raw)
+
+    def _run_executor(self, rel, out_cols, trace: bool = False,
+                      why: Optional[str] = None) -> Result:
+        from .obs import PROFILER
+        if why is not None:
+            stats_inc("fallbacks")
+        events = None
+        if trace:
+            PROFILER.start()
+            if why is not None:
+                PROFILER.events.append({"op": "fragment.fallback",
+                                        "reason": why})
+        try:
+            frame = Executor(self.catalog).run(rel)
+        finally:
+            if trace:
+                events = PROFILER.stop()
+        names = [getattr(c, "display", None) or c.name for c in out_cols]
+        cols = [frame.get("#out", c.name) for c in out_cols]
+        decoded = [_decode_column(c) for c in cols]
+        rows = [tuple(d[i] for d in decoded) for i in range(frame.count)]
+        return Result(names, [c.typ for c in out_cols], rows, trace=events)

@@ -1,2 +1,3 @@
-"""Plan execution: the fused-fragment interpreter (fragment.py).  The
-op-at-a-time executor is not ported yet."""
+"""Plan execution: the fused-fragment interpreter (fragment.py) and the
+op-at-a-time executor it falls back to (executor.py, with the dataflow
+worker pool of dataflow.py)."""

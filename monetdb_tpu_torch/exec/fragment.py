@@ -31,13 +31,14 @@ Kept from the reference's design:
   search); a build side that turns out non-unique is flagged on the device
   and re-lowered as an expanding join (``r_join_expand``), whose output
   capacity is one more count-then-retry bucket.
-* scalar subqueries run at plan time, through this same fragment, and are
-  baked into the IR as literals.
+* scalar subqueries run at plan time, through this same fragment (or, if
+  it rejects the subquery's plan, through the op-at-a-time executor), and
+  are baked into the IR as literals.
 
-Not ported yet (raise ``Unsupported``): SPMD over a device mesh, string
-casts, and plans that need the op-at-a-time executor (window functions,
-...).  There is no fallback executor: a plan the fragment rejects raises
-``Unsupported``.
+A plan the fragment rejects raises ``Unsupported``, at lowering or at run
+time; the engine then runs it through the op-at-a-time executor
+(exec/executor.py), as it does every plan with window functions.  Not
+ported yet: SPMD over a device mesh.
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ from .. import config
 from ..column import StrDict, capacity_for
 from ..dtypes import (BOOL, DATE, F64, I8, I32, I64, TIMESTAMP, Kind,
                       SQLType, decimal as dec_t, varchar)
+from ..ops._tensor import (catalog_device, idiv as _idiv, irem as _irem,
+                           lexsort as _lexsort, nil_const as _nil_const,
+                           nilm as _nilm_arr, npdt as _npdt,
+                           set_drop as _set_drop, tdt as _tdt)
 from ..ops.cuda_kernels import seg_sum64
 from ..ops.sort import sort_key
 from ..plan import logical as L
@@ -242,7 +247,7 @@ class Lowering:
         idx = len(self.inputs)
         # port: the lut goes to the device of the catalog's tensors
         self.inputs.append(torch.as_tensor(
-            np_arr, device=_catalog_device(self.catalog)))
+            np_arr, device=catalog_device(self.catalog, Unsupported)))
         self.input_tables.append(None)
         return idx
 
@@ -946,18 +951,42 @@ class Lowering:
             v = int(v)
         return ("lit", v, pt.dt), pt
 
+    def _subquery_executor(self, rel, name: str):
+        """The scalar subquery's value through the op-at-a-time executor
+        (the reference's only path)."""
+        from .executor import Executor
+        frame = Executor(self.catalog).run(rel)
+        col = frame.get("#out", name)
+        if frame.count == 0:
+            return self._lit(HScalar(None, col.typ))
+        v = col.data[0].cpu().numpy()
+        if col.typ.np_dtype.kind == "f":
+            fv = float(v)
+            return self._lit(HScalar(None if np.isnan(fv) else fv, col.typ))
+        iv = int(v)
+        if col.typ.np_dtype.kind == "i" and \
+                iv == np.iinfo(col.typ.np_dtype).min:
+            return self._lit(HScalar(None, col.typ))
+        if col.typ.kind == Kind.STR:
+            return self._lit(HScalar(str(col.sdict.values[iv]), col.typ))
+        return self._lit(HScalar(iv, col.typ))
+
     def _subquery(self, e: Subquery):
         """Scalar subquery: run it at plan time and bake the value
         (data-dependent -> IR changes with data, which keys the plan memo
         correctly).  The reference runs it through its op-at-a-time
         executor; the port runs the bound plan through a fragment of its
-        own, so a subquery the fragment cannot lower raises Unsupported."""
+        own and takes the executor only where that fragment raises
+        Unsupported."""
         if not (isinstance(e.select, tuple) and e.select[0] == "bound"):
             raise Unsupported("unbound subquery")
         if e.kind != "scalar":
             raise Unsupported(f"{e.kind} subquery in fragment expression")
         _tag, rel, scols = e.select
-        fr = CompiledFragment(self.catalog, rel, [scols[0].name]).run()
+        try:
+            fr = CompiledFragment(self.catalog, rel, [scols[0].name]).run()
+        except Unsupported:
+            return self._subquery_executor(rel, scols[0].name)
         typ = fr.pts[0].typ
         if fr.count == 0:
             return self._lit(HScalar(None, typ))
@@ -1057,10 +1086,8 @@ class Lowering:
         apply by gather (gdk_calc_convert.c convert_str_any analog)."""
         if pt.sdict is None:
             raise Unsupported("string cast without dictionary")
-        # port: restores `from .executor import _parse_str_cast` and
-        # `from ..storage.columns import to_physical_np`
-        raise Unsupported("string cast: exec/executor.py and "
-                          "storage/columns.py not ported yet")
+        from .executor import _parse_str_cast
+        from ..storage.columns import to_physical_np
         vals = []
         for sv in pt.sdict.values:
             try:
@@ -1584,70 +1611,16 @@ def _val_or_scalar_w(self, e, penv):
 Lowering._val_or_scalar = _val_or_scalar_w
 
 
-def _catalog_device(catalog) -> torch.device:
-    """The one device that holds every tensor of ``catalog``."""
-    devs = {c.data.device for t in catalog.tables.values()
-            for c in t.columns.values()}
-    if len(devs) != 1:
-        raise Unsupported(f"catalog tensors on {sorted(map(str, devs))}: "
-                          "need exactly one device")
-    return devs.pop()
-
-
 # ---------------------------------------------------------------------------
 # interpreter - runs the IR eagerly as torch ops on the inputs' device
 # ---------------------------------------------------------------------------
 
-_NP2TORCH = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
-             np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
-             np.dtype(np.int64): torch.int64,
-             np.dtype(np.float32): torch.float32,
-             np.dtype(np.float64): torch.float64}
-_TORCH2NP = {t: d for d, t in _NP2TORCH.items()}
 _I64_MIN_PY = int(_I64_MIN)
-
-
-def _tdt(dt) -> torch.dtype:
-    """numpy dtype (or its str, as the IR carries it) -> torch dtype."""
-    return dt if isinstance(dt, torch.dtype) else _NP2TORCH[np.dtype(dt)]
-
-
-def _npdt(dt) -> np.dtype:
-    return _TORCH2NP[dt] if isinstance(dt, torch.dtype) else np.dtype(dt)
-
-
-def _nil_const(dtype):
-    """Nil sentinel of a numpy or torch dtype, as a python scalar."""
-    d = _npdt(dtype)
-    if d.kind == "f":
-        return float("nan")
-    if d.kind == "b":
-        return False
-    return int(np.iinfo(d).min)
-
-
-def _nilm_arr(x):
-    if x.dtype.is_floating_point:
-        return torch.isnan(x)
-    if x.dtype == torch.bool:
-        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    return x == torch.iinfo(x.dtype).min
 
 
 def _bcast(v, cap: int):
     """A 0-d value (literal, scalar aggregate) as a column of cap rows."""
     return v.expand(cap) if v.dim() == 0 else v
-
-
-def _set_drop(size: int, fill, pos, vals):
-    """``jnp.full(size, fill).at[pos].set(vals, mode="drop")`` for unique
-    positions: torch raises (CPU) or asserts (CUDA) on an out-of-range
-    index where JAX drops the update, so out-of-range positions are sent
-    to a spare slot that is cut off."""
-    out = torch.full((size + 1,), fill, dtype=vals.dtype, device=vals.device)
-    idx = torch.where((pos >= 0) & (pos < size), pos, size).long()
-    out.scatter_(0, idx, vals)
-    return out[:size]
 
 
 def _nil64_to_i32(out):
@@ -1663,17 +1636,6 @@ def _gather_nil(arr, oids, live_out):
     return torch.where(ok, arr[safe], _nil_const(arr.dtype))
 
 
-def _lexsort(keys: list):
-    """Stable lexicographic argsort, first key most significant: one stable
-    argsort per key, least significant first (the ordering the
-    reference's _lsd_argsort realizes with int32 key rows)."""
-    perm = None
-    for k in reversed(keys):
-        perm = torch.argsort(k, stable=True) if perm is None else \
-            perm[torch.argsort(k[perm], stable=True)]
-    return perm
-
-
 def _group_key(arr):
     """A column as a grouping sort key: grouping needs only a total order
     with nils grouped, so raw integer/code order qualifies; floats go
@@ -1684,20 +1646,6 @@ def _group_key(arr):
     if arr.dtype.is_floating_point:
         return sort_key(arr, False, None)
     return arr
-
-
-def _idiv(a, b):
-    """Truncating integer division, b == 0 -> a (the caller flags it),
-    INT_MIN / -1 -> INT_MIN: XLA's lax.div semantics.  The x86 divide
-    instruction traps on INT_MIN / -1, so -1 is handled by negation."""
-    safe = torch.where((b == 0) | (b == -1), 1, b)
-    return torch.where(b == -1, -a, torch.div(a, safe, rounding_mode="trunc"))
-
-
-def _irem(a, b):
-    """Truncating integer remainder, b == 0 -> 0, x % -1 -> 0 (lax.rem)."""
-    safe = torch.where((b == 0) | (b == -1), 1, b)
-    return torch.where(b == -1, 0, torch.fmod(a, safe))
 
 
 class _SegReduce:
@@ -2915,7 +2863,7 @@ _LOCK = threading.Lock()
 
 #: observability: runs and count-then-retry re-lowerings; tests use this to
 #: prove the retry path executed
-STATS = {"runs": 0, "uniq_retries": 0, "cap_retries": 0}
+STATS = {"runs": 0, "uniq_retries": 0, "cap_retries": 0, "fallbacks": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:

@@ -1,3 +1,4 @@
-"""Device operators the fragment interpreter uses: sort keys (sort.py),
-arithmetic error types (calc.py) and the hand-written CUDA kernels
-(cuda_kernels.py)."""
+"""Device operators — the GDK operator library of the reference
+(select/calc/project/group/aggr/sort/join/window, date and string
+functions) as plain functions on torch tensors, plus the hand-written CUDA
+kernels (cuda_kernels.py) the fragment interpreter launches."""

@@ -1,11 +1,12 @@
 """Date/time arithmetic on integer tensors: the reference's gdk_time.c
-(component extraction, truncation) over epoch-day int32 (DATE) and
-microseconds-since-epoch int64 (TIMESTAMP) columns.
+(date arithmetic, component extraction, truncation, month arithmetic with
+day clamping) over epoch-day int32 (DATE), microseconds-since-epoch int64
+(TIMESTAMP) and microseconds-of-day int64 (TIME) columns.
 
-The counterpart of the reference package's ops/datecalc.py as far as the
-fragment interpreter needs it (``e_dextract``, ``e_dtrunc``): plain
-functions on tensors, on whatever device holds them, under the
-reference's names.  Uses the standard
+``_extract`` and ``_trunc`` are plain functions on tensors (the fragment
+interpreter calls them for ``e_dextract``, ``e_dtrunc``); ``extract``,
+``date_trunc`` and ``add_interval_col`` wrap them for Columns, as the
+op-at-a-time executor calls them.  Uses the standard
 civil-from-days algorithm (Howard Hinnant's public-domain date algorithms)
 as branch-free integer ops, exact for the proleptic Gregorian calendar.
 ``//`` and ``%`` on integer tensors floor, as the algorithm needs for days
@@ -15,6 +16,11 @@ before 1970.
 from __future__ import annotations
 
 import torch
+
+from ..column import Column
+from ..dtypes import DATE, I32, I64, TIMESTAMP, Kind
+
+__all__ = ["extract", "date_trunc", "add_interval_col"]
 
 _NIL32 = -(1 << 31)
 _NIL64 = -(1 << 63)
@@ -138,3 +144,101 @@ def _trunc(vals, *, field: str, is_ts: bool):
             raise ValueError(field)
         out = nd * _US_PER_DAY
     return torch.where(_nil_in(vals), _NIL64, out)
+
+
+def extract(field: str, col: Column) -> Column:
+    """EXTRACT(field FROM col) / year(col)-family (gdk_time.c date_extract
+    operators, modules/atoms/mtime.c)."""
+    field = _FIELD_ALIASES.get(field, field)
+    if col.typ.kind == Kind.TIME:
+        # hour/minute/second over µs-of-day
+        us = col.data
+        if field == "hour":
+            out = us // 3_600_000_000
+        elif field == "minute":
+            out = (us // 60_000_000) % 60
+        elif field == "second":
+            out = (us // 1_000_000) % 60
+        elif field == "epoch":
+            out = us // 1_000_000
+        else:
+            raise ValueError(f"cannot extract {field} from TIME")
+        out = torch.where(~col.live_mask() | (us == _NIL64), _NIL64, out)
+    else:
+        out = _extract(col.data, field=field,
+                       is_ts=col.typ.kind == Kind.TIMESTAMP)
+        out = torch.where(col.live_mask(), out, _NIL64)
+    if field == "epoch":
+        return Column(I64, out, col.count, nonil=col.nonil)
+    out32 = torch.where(out == _NIL64, _NIL32, out).to(torch.int32)
+    c = Column(I32, out32, col.count, nonil=col.nonil)
+    if field == "year" and col.typ.kind == Kind.DATE and \
+            col.minval is not None and col.maxval is not None:
+        c.minval = 1970 + int(col.minval) // 366 - 1
+        c.maxval = 1970 + int(col.maxval) // 365 + 1
+    return c
+
+
+def date_trunc(field: str, col: Column) -> Column:
+    """date_trunc('field', ts) (reference sql/scripts/39_analytics:
+    sys.date_trunc over mtime)."""
+    out = _trunc(col.data, field=field, is_ts=col.typ.kind == Kind.TIMESTAMP)
+    out = torch.where(col.live_mask(), out, _NIL64)
+    return Column(TIMESTAMP, out, col.count, nonil=col.nonil)
+
+
+_MONTH_DAYS = [31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31]
+
+
+def _add_months(days, live, *, months: int):
+    """epoch days + months as int64; the int32 nil where the input is nil
+    or the row is dead."""
+    y, m, d = _civil(days)
+    t = y * 12 + (m - 1) + months
+    ny = t // 12
+    nm = t % 12 + 1
+    # clamp day to the target month's length (gdk_time.c date_add_month)
+    leap = ((ny % 4 == 0) & (ny % 100 != 0)) | (ny % 400 == 0)
+    mdays = torch.tensor(_MONTH_DAYS, dtype=torch.int64,
+                         device=days.device)[nm - 1]
+    mdays = torch.where((nm == 2) & leap, 29, mdays)
+    out = _days_from_civil(ny, nm, torch.minimum(d, mdays))
+    return torch.where(~live | (days == _NIL32), _NIL32, out)
+
+
+def add_interval_col(col: Column, amount: int, unit: str) -> Column:
+    """column ± interval (BATcalc + mtime addition operators)."""
+    if unit == "quarter":
+        amount, unit = amount * 3, "month"
+    if unit == "week":
+        amount, unit = amount * 7, "day"
+    is_ts = col.typ.kind == Kind.TIMESTAMP
+    live = col.live_mask()
+    if unit in ("year", "month"):
+        months = amount * 12 if unit == "year" else amount
+        if is_ts:
+            days = col.data // _US_PER_DAY
+            us = col.data - days * _US_PER_DAY
+            # a nil timestamp's day number is no int32 nil: clamp it and
+            # restore the nil afterwards
+            nil_in = col.data == _NIL64
+            nd = _add_months(torch.where(nil_in, 0, days),
+                             torch.ones_like(live), months=months)
+            out = torch.where(nil_in, _NIL64, nd * _US_PER_DAY + us)
+            return Column(TIMESTAMP, out, col.count, nonil=col.nonil)
+        out = _add_months(col.data, live, months=months).to(torch.int32)
+        return Column(DATE, out, col.count, nonil=col.nonil)
+    if unit in ("hour", "minute", "second") or is_ts:
+        us = {"day": _US_PER_DAY, "hour": 3_600_000_000,
+              "minute": 60_000_000, "second": 1_000_000}[unit] * amount
+        if is_ts:
+            data = col.data
+        else:   # DATE promotes to TIMESTAMP under sub-day arithmetic
+            data = torch.where(col.data == _NIL32, _NIL64,
+                               col.data.to(torch.int64) * _US_PER_DAY)
+        out = torch.where(~live | (data == _NIL64), _NIL64, data + us)
+        return Column(TIMESTAMP, out, col.count, nonil=col.nonil)
+    # DATE ± days
+    out = torch.where(~live | (col.data == _NIL32), _NIL32,
+                      col.data + int(amount))
+    return Column(DATE, out, col.count, nonil=col.nonil)

@@ -489,3 +489,426 @@ def test_load_tpch_defaults_to_the_card(cuda_device):
     cat = load_tpch(0.01, cache=False)
     assert all(c.data.is_cuda for t in cat.tables.values()
                for c in t.columns.values())
+
+
+# ---------------------------------------------------------------------------
+# slice E: the operator library, the window functions and the op-at-a-time
+# executor on the card against the port's own CPU run.  The statements live
+# here (no JAX in this file); tests/test_torch_executor.py and
+# tests/test_torch_window.py hold the CPU to the reference on them.
+# ---------------------------------------------------------------------------
+
+def exec_tables():
+    """agg_table's t (4000 rows: g, h, u, v, w, c, x, s with nils) plus
+    r(k, s, n): 9 rows with a nil key, a nil string and digit strings."""
+    tables = dict(agg_table())
+    tables["r"] = {
+        "k": (np.array([0, 1, 2, 3, 3, _NIL64, 7, 40, 41], np.int64), "I64",
+              {}),
+        "s": (["ab", "cd", None, "ab", "zz", "ef", "gh", "ab", "cd"], "str",
+              {}),
+        "n": (["12", "-7", "300", None, "12", "0", "45", "8", "9"], "str",
+              {})}
+    return tables
+
+
+EXECUTOR_SQL = [
+    # casts between strings and values, both ways
+    "select id, cast(u as varchar(10)) as us from t where id < 40 "
+    "order by id",
+    "select cast(n as integer) as ni, cast(n as bigint) + 1 as n1 from r "
+    "order by k",
+    "select cast(n as decimal(8,2)) as nd, cast(n as double) as nf from r "
+    "order by k",
+    "select cast(x as varchar(20)) as xs, cast(c as varchar(30)) as cs "
+    "from t where id < 25 order by id",
+    "select cast(cast(u as varchar(8)) as integer) as back from t "
+    "where id < 30 order by id",
+    # string concatenation
+    "select id, s || '-' || s as ss, 'p:' || s as ps from t where id < 50 "
+    "order by id",
+    "select k, s || n as sn from r order by k",
+    # set operations
+    "select g from t union select k from r order by g",
+    "select g from t where id < 30 union all select k from r order by g",
+    "select u from t intersect select k from r order by u",
+    "select k from r except select u from t order by k",
+    "select g from t where id < 40 except all select k from r order by g",
+    "select k from r intersect all select g from t order by k",
+    "select s from t union select s from r order by s",
+    # VALUES, generate_series, SAMPLE, LIMIT/OFFSET
+    "select * from (values (1, 'a'), (2, 'b'), (3, null)) as v(i, s) "
+    "order by i",
+    "select value, value * value as sq from generate_series(3, 40, 4) "
+    "order by value",
+    "select id, u from t sample 25 seed 7",
+    "select id, u from t order by u, id limit 15 offset 20",
+    "select id from t limit 7 offset 3990",
+    "select u, count(*) as n from t group by u order by u limit 5",
+    # IN / NOT IN / EXISTS subqueries, nils on either side
+    "select id, v from t where v in (select k from r) and id < 400 "
+    "order by id",
+    "select id, v from t where v not in (select k from r where k is not "
+    "null) and id < 300 order by id",
+    "select id from t where v not in (select k from r) and id < 300 "
+    "order by id",
+    "select id, v in (select k from r) as m from t where id < 120 "
+    "order by id",
+    "select id, v not in (select k from r where k < 5) as m from t "
+    "where id < 120 order by id",
+    "select k from r where exists (select 1 from t where t.u = r.k) "
+    "order by k",
+    "select k from r where not exists (select 1 from t where t.g = r.k) "
+    "order by k",
+    # quantiles and moments
+    "select g, quantile(v, 0.25) as q1, median(v) as med from t group by g "
+    "order by g",
+    "select g, stddev_samp(x) as sd, stddev_pop(x) as sp, var_samp(v) as "
+    "vs, var_pop(v) as vp from t group by g order by g",
+    "select h, corr(x, v) as r, covar_samp(x, v) as cs, covar_pop(x, v) as "
+    "cp from t where h < 12 group by h order by h",
+    "select median(c) as mc, quantile(x, 0.9) as qx from t",
+    "select g, group_concat(s) as ss from t where id < 60 group by g "
+    "order by g",
+    "select g, group_concat(s, '|') as ss, listagg(s, ';') as ls from t "
+    "where id < 40 group by g order by g",
+    "select g, count(distinct s) as ds, sum(distinct v) as sv, "
+    "avg(distinct v) as av, prod(g + 1) as p from t where id < 50 "
+    "group by g order by g",
+    # greatest / least, CASE and COALESCE over strings
+    "select id, greatest(u, v) as gr, least(u, v, g) as le from t "
+    "where id < 60 order by id",
+    "select id, greatest(s, 'cd') as gs, least(s, 'cd') as ls from t "
+    "where id < 60 order by id",
+    "select id, case when g < 2 then s when g < 4 then 'mid' else "
+    "cast(u as varchar(8)) end as c from t where id < 80 order by id",
+    "select id, coalesce(s, 'none') as cs, nullif(s, 'ab') as ns from t "
+    "where id < 80 order by id",
+    "select k, coalesce(s, n, '?') as c from r order by k",
+    # a cross join, outer joins and a join with a residual
+    "select r.k, t.id from r, t where t.id < 3 order by r.k, t.id",
+    "select r.k, t.id from r left join t on t.u = r.k and t.id < 200 "
+    "order by r.k, t.id",
+    "select r.k, t.id from t right join r on t.u = r.k and t.id < 100 "
+    "order by r.k, t.id",
+    "select r.k, q.g from r full join (select distinct g from t) q "
+    "on q.g = r.k order by r.k, q.g",
+    "select r.k, count(*) as n from r join t on t.g = r.k and t.u > r.k "
+    "group by r.k order by r.k",
+    # string and date functions, rounding, math
+    "select id, upper(s) as us, length(s) as ls, substring(s, 2, 1) as s2, "
+    "replace(s, 'a', 'xy') as rs, lpad(s, 4, '*') as lp from t "
+    "where id < 40 order by id",
+    "select id, s like 'a%' as la, locate('b', s) as lb, "
+    "startswith(s, 'c') as sc from t where id < 40 order by id",
+    "select id, round(x, 1) as r1, round(c, 1) as rc, truncate(c, 0) as tc, "
+    "floor(x) as fx, sqrt(x) as sx, power(x, 2) as px from t "
+    "where id < 40 order by id",
+    "select id, u % 7 as m, u / 7 as d, -u as nu, abs(u) as au from t "
+    "where id < 60 order by id",
+    "select distinct g, s from t order by g, s",
+    "select count(*) as n, sum(v) as sv, min(s) as ms, max(x) as mx, "
+    "avg(c) as ac from t where id < 0",
+]
+
+
+DATE_SQL = [
+    "select l_orderkey, l_shipdate + interval '1' month as m, "
+    "l_shipdate - interval '40' day as d, extract(dow from l_shipdate) as "
+    "w, year(l_commitdate) as y from lineitem where l_orderkey < 40 "
+    "order by l_orderkey, l_linenumber",
+    "select o_orderkey, date_trunc('month', o_orderdate) as mo, "
+    "cast(o_orderdate as varchar(10)) as ds, "
+    "cast(cast(o_orderdate as varchar(10)) as date) as back from orders "
+    "where o_orderkey < 100 order by o_orderkey",
+    "select o_orderkey, date_to_str(o_orderdate, '%Y/%m/%d') as s, "
+    "str_to_date(cast(o_orderdate as varchar(10)), '%Y-%m-%d') as d "
+    "from orders where o_orderkey < 60 order by o_orderkey",
+]
+
+
+MORE_WINDOW_SQL = [
+    # a window over an aggregate, filtered and aggregated outside (the
+    # shape of TPC-DS Q89)
+    """select n, count(*) as c, sum(dev) as s from (
+         select l_orderkey, sum(l_quantity) as q,
+                avg(sum(l_quantity)) over (partition by l_orderkey % 7) as a,
+                sum(l_quantity) - min(sum(l_quantity))
+                    over (partition by l_orderkey % 7) as dev,
+                l_orderkey % 7 as n
+         from lineitem group by l_orderkey) t
+       where q > a group by n order by n""",
+    # no PARTITION BY, no ORDER BY of its own: rows surface in the
+    # window's order
+    """select s_suppkey, sum(s_acctbal) over (order by s_suppkey) as run
+       from supplier""",
+    """select o_custkey, o_orderkey,
+              nth_value(o_totalprice, 2) over (partition by o_custkey
+                                               order by o_orderdate) as n2,
+              last_value(o_orderkey) over (partition by o_custkey) as lv,
+              lag(o_orderdate, 2) over (partition by o_custkey
+                                        order by o_orderdate) as d2
+       from orders where o_custkey < 200 order by o_custkey, o_orderkey""",
+    """select l_orderkey, l_linenumber,
+              max(l_extendedprice) over (partition by l_orderkey
+                  order by l_linenumber rows between 1 preceding
+                  and 1 following) as m3,
+              min(l_quantity) over (partition by l_orderkey
+                  order by l_linenumber range between 2 preceding
+                  and current row) as lo,
+              sum(l_extendedprice) over (partition by l_orderkey
+                  order by l_shipdate desc range between 30 preceding
+                  and 30 following) as near,
+              count(*) over (partition by l_orderkey order by l_linenumber
+                  groups between 1 preceding and 1 following) as g
+       from lineitem where l_orderkey < 600
+       order by l_orderkey, l_linenumber""",
+]
+
+
+
+def window_inputs(seed, n, nparts, norder):
+    """n rows sorted by (partition, order) as numpy arrays: partition ids,
+    order keys (with peers), int64 values with nils, floats with NaN."""
+    rng = np.random.default_rng(seed)
+    part = np.sort(rng.integers(0, nparts, n)).astype(np.int64)
+    order = rng.integers(0, norder, n).astype(np.int64)
+    idx = np.lexsort((order, part))
+    v = rng.integers(-100, 100, n).astype(np.int64)
+    v[rng.random(n) < 0.15] = _NIL64
+    x = np.round(rng.normal(0, 50, n), 2)
+    x[rng.random(n) < 0.15] = np.nan
+    return part[idx], order[idx], v, x
+
+
+def _columns_on(dev, seed=31, n=5000):
+    part, order, v, x = window_inputs(seed, n, 60, 9)
+    rng = np.random.default_rng(seed + 1)
+
+    def col(arr, typ, **props):
+        return T.Column.from_numpy(arr, typ, device=dev, **props)
+    return {
+        "n": n, "part": col(part, T.I64), "order": col(order, T.I64),
+        "v": col(v, T.I64), "x": col(x, T.F64),
+        "d": col(v, T.dtypes.decimal(12, 2)),
+        "k": col(rng.integers(0, 40, n).astype(np.int64), T.I64,
+                 minval=0, maxval=39),
+        "u": col(rng.integers(-30, 30, n).astype(np.int64), T.I64),
+        "w": col(rng.integers(-9, 10, n).astype(np.int64), T.I64),
+        "s": T.Column.from_strings(
+            list(rng.choice(["ab", "cd", "ef", "gh"], n)), device=dev),
+        "date": col(rng.integers(-20000, 20000, n).astype(np.int32),
+                    T.DATE),
+        "r": col(rng.integers(10, 70, 1500).astype(np.int64), T.I64),
+    }
+
+
+def _flat(out):
+    """Every tensor in a result (Column, Cand, GroupResult, tuple, ...);
+    a host scalar (a count) stays as it is."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, T.Column):
+        return [out.data]
+    if isinstance(out, T.Cand):
+        return [t for t in (out.mask, out.oids) if t is not None]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    if hasattr(out, "ids"):
+        return [t for t in (out.ids, out.extents, out.histo)
+                if t is not None]
+    return [out]
+
+
+def _op_cases():
+    from monetdb_tpu_torch.ops import aggr, calc, datecalc, group, join, \
+        project, select, sort, strfuncs, window
+    c = {}
+    c["select"] = lambda m: [select.select(m["v"], tl=-10, th=30),
+                             select.thetaselect(m["x"], None, 1.5, "<"),
+                             select.select(m["v"], tl=5, th=None, anti=True)]
+    c["materialize_project"] = lambda m: [
+        project.project(select.thetaselect(m["u"], None, 0, ">"), m["x"]),
+        select.materialize(T.Cand.dense(m["n"], 10, 900), m["v"].cap,
+                           m["v"].data.device).oids]
+    for op in ("add", "sub", "mul", "div", "mod", "min", "max"):
+        c[f"binop_{op}"] = lambda m, op=op: [
+            calc.binop(op, m["v"], m["w"] if op not in ("div", "mod")
+                       else calc.binop("add", calc.binop("mul", m["w"],
+                                                         m["w"]), 1)),
+            calc.binop(op, m["x"], 3.5)]
+    c["convert"] = lambda m: [
+        calc.convert(m["x"], T.I64), calc.convert(m["d"], T.F64),
+        calc.convert(m["d"], T.dtypes.decimal(12, 1), scale_down=1),
+        calc.convert(m["v"], T.dtypes.decimal(14, 2), scale_up=2)]
+    c["compare_ifthenelse"] = lambda m: [
+        calc.ifthenelse(calc.compare("<", m["v"], m["u"]), m["v"], m["u"],
+                        T.I64), calc.isnil(m["x"]), calc.unop("neg", m["v"])]
+    c["argsort"] = lambda m: list(sort.argsort(
+        [m["k"], m["x"], m["s"]], [True, False, True], [None, True, False]))
+    c["firstn_ties"] = lambda m: [sort.firstn([m["k"]], 77, [True])[0],
+                                  sort.firstn([m["k"], m["u"]], 300)[0]]
+    c["group"] = lambda m: [group.group_multi([m["k"], m["s"]]),
+                            group.group_multi([m["u"], m["x"]]),
+                            group.group(m["s"], T.Cand.dense(m["n"], 7, 7))]
+    c["aggr_exact"] = lambda m: (lambda g: [
+        aggr.group_sum(m["v"], g), aggr.group_sum(m["d"], g, False),
+        aggr.group_count(m["x"], g), aggr.group_min(m["x"], g),
+        aggr.group_max(m["s"], g), aggr.group_prod(m["w"], g),
+        aggr.group_quantile(m["x"], g, 0.3), aggr.scalar_sum(m["v"]),
+        aggr.scalar_count(None, base=m["v"])])(group.group(m["k"]))
+    c["aggr_float"] = lambda m: (lambda g: [
+        aggr.group_sum(m["x"], g), aggr.group_avg(m["v"], g)[0],
+        aggr.group_var(m["x"], g), aggr.group_stdev(m["d"], g, False),
+        aggr.group_corr(m["x"], m["v"], g),
+        aggr.group_covar(m["x"], m["d"], g)])(group.group(m["k"]))
+    c["join"] = lambda m: [
+        join.join(m["u"], m["r"], how=how)[:2] for how in
+        ("inner", "left", "outer")] + [
+        join.semijoin(m["u"], m["r"])[0], join.antijoin(m["u"], m["r"])[0],
+        join.markjoin(m["v"], m["r"])[:2],
+        join.join(m["v"], m["v"], T.Cand.dense(m["n"], 0, 400),
+                  T.Cand.dense(m["n"], 100, 300), nil_matches=True)[:2]]
+    c["datecalc"] = lambda m: [
+        datecalc.extract(f, m["date"]) for f in ("year", "month", "dow",
+                                                 "week", "doy")] + [
+        datecalc.add_interval_col(m["date"], -13, "month"),
+        datecalc.add_interval_col(m["date"], 5, "hour"),
+        datecalc.date_trunc("quarter", m["date"])]
+    c["strfuncs"] = lambda m: [
+        strfuncs.like_cand(m["s"], "%d"), strfuncs.upper(m["s"]),
+        strfuncs.length(m["s"]), strfuncs.concat_cols(m["s"], m["s"])]
+
+    def win(m):
+        pb = window.diff(m["part"])
+        ob = window.multi_boundary([m["order"]], m["n"])
+        return pb, ob
+    c["window_rank"] = lambda m: (lambda pb, ob: [
+        window.row_number(pb), window.rank(pb, ob),
+        window.dense_rank(pb, ob), window.percent_rank(pb, ob),
+        window.cume_dist(pb, ob), window.ntile(pb, 4)])(*win(m))
+    c["window_values"] = lambda m: (lambda pb, ob: [
+        window.lag(m["v"], pb, 2), window.lead(m["x"], pb, 1),
+        window.first_value(m["s"], pb), window.last_value(m["v"], pb),
+        window.nth_value(m["d"], pb, 3),
+        window.cume_window_sum(m["d"], pb)])(*win(m))
+    for func in ("sum", "avg", "min", "max", "count"):
+        c[f"windowed_{func}"] = lambda m, func=func: (lambda pb, ob: [
+            window.windowed_agg(func, m[name], pb, ob, frame, m["n"])
+            for name in ("v", "x") for frame in ("rows", "range", "full")
+        ])(*win(m))
+        c[f"framed_{func}"] = lambda m, func=func: (lambda pb, ob: [
+            window.framed_agg(func, m[name], pb, m["order"].data, unit, lo,
+                              hi, m["n"])
+            for name in ("v", "x") for unit, lo, hi in (
+                ("rows", -2, 1), ("rows", None, 3), ("range", -2, 2),
+                ("range", 0, None), ("groups", -1, 1))])(*win(m))
+    return c
+
+
+#: float sums add in another order on the card (atomics), and what is
+#: computed from them inherits it; everything else must be equal
+_OPS_FLOAT_RTOL = {"aggr_float": 1e-9, "windowed_sum": 1e-9,
+                   "windowed_avg": 1e-9, "framed_sum": 1e-9,
+                   "framed_avg": 1e-9, "binop_div": 1e-15,
+                   "convert": 1e-15}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_op_cases()))
+def test_ops_on_gpu_match_cpu(cuda_device, name):
+    """Each operator of ops/* and each window function on CUDA tensors
+    against the same call on CPU tensors."""
+    fn = _op_cases()[name]
+    got = _flat(fn(_columns_on(cuda_device)))
+    want = _flat(fn(_columns_on("cpu")))
+    assert len(got) == len(want) and got
+    rtol = _OPS_FLOAT_RTOL.get(name)
+    for g, w in zip(got, want):
+        if not isinstance(w, torch.Tensor):
+            assert g == w, name
+            continue
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        if w.dtype.is_floating_point and rtol is not None:
+            assert torch.allclose(g.cpu(), w, rtol=rtol, atol=0,
+                                  equal_nan=True), name
+        elif w.dtype.is_floating_point:
+            assert torch.equal(torch.nan_to_num(g.cpu(), nan=-7.25),
+                               torch.nan_to_num(w, nan=-7.25)), name
+        else:
+            assert torch.equal(g.cpu(), w), name
+
+
+@pytest.fixture
+def executor_only():
+    from monetdb_tpu_torch import config
+    config.set("fragment_exec", False)
+    yield
+    config.reset("fragment_exec")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", range(1, 23))
+def test_executor_on_gpu_matches_cpu_and_oracle(cuda_device, engines_by_sf,
+                                                executor_only, q):
+    """TPC-H at SF0.1 through the op-at-a-time executor on the card: the
+    CPU executor's rows and the oracle's (floats rel 1e-9), no fragment
+    run and no hand-written kernel launched."""
+    from monetdb_tpu_torch.bench.tpch_queries import QUERIES
+    from monetdb_tpu_torch.exec import fragment
+    data, gpu, cpu = engines_by_sf(0.1)
+    runs0, launches0 = fragment.STATS["runs"], dict(CK.LAUNCHES)
+    got = list(gpu.query(QUERIES[q]).rows)
+    assert got and fragment.STATS["runs"] == runs0
+    assert CK.LAUNCHES == launches0
+    assert tpch_oracle.rows_differ(
+        got, list(cpu.query(QUERIES[q]).rows), 1e-9) is None
+    want = tpch_oracle.decoded(q, tpch_oracle.ORACLES[q](data))
+    assert tpch_oracle.rows_differ(got, want, 1e-9) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sql", EXECUTOR_SQL)
+def test_executor_statements_on_gpu_match_cpu(cuda_device, executor_only,
+                                              sql):
+    from monetdb_tpu_torch.engine import Engine
+    gpu = Engine(torch_catalog(exec_tables(), cuda_device))
+    cpu = Engine(torch_catalog(exec_tables(), "cpu"))
+    assert tpch_oracle.rows_differ(list(gpu.query(sql).rows),
+                                   list(cpu.query(sql).rows), 1e-9) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sql", DATE_SQL + MORE_WINDOW_SQL)
+def test_window_and_date_sql_on_gpu_match_cpu(cuda_device, engines_by_sf,
+                                              sql):
+    """Window statements fall back to the executor on both devices."""
+    from monetdb_tpu_torch.exec import fragment
+    _data, gpu, cpu = engines_by_sf(0.01)
+    falls0 = fragment.STATS["fallbacks"]
+    got = list(gpu.query(sql).rows)
+    if " over (" in sql:
+        assert fragment.STATS["fallbacks"] == falls0 + 1
+    assert got and tpch_oracle.rows_differ(
+        got, list(cpu.query(sql).rows), 1e-9) is None
+
+
+@pytest.mark.cuda
+def test_tpcds_loader_defaults_to_the_card(cuda_device):
+    from monetdb_tpu_torch.bench import ssbm, tpcds
+    from monetdb_tpu_torch.engine import Engine
+    from monetdb_tpu_torch.exec import fragment
+    for mod, n in ((tpcds, 20_000), (ssbm, 20_000)):
+        load = getattr(mod, "load_" + mod.__name__.rsplit(".", 1)[1])
+        cat, _data = load(n)
+        assert all(c.data.is_cuda for t in cat.tables.values()
+                   for c in t.columns.values())
+        cpu_cat, _ = load(n, device="cpu")
+        gpu, cpu = Engine(cat), Engine(cpu_cat)
+        for qid, sql in mod.QUERIES.items():
+            falls0 = fragment.STATS["fallbacks"]
+            assert tpch_oracle.rows_differ(
+                list(gpu.query(sql).rows), list(cpu.query(sql).rows),
+                1e-9) is None, (mod.__name__, qid)
+            assert fragment.STATS["fallbacks"] - falls0 == \
+                2 * (mod is tpcds and qid in ("53", "89", "98"))

@@ -163,16 +163,27 @@ def test_dense_groupby_matches_reference(sql):
 
 
 def test_unported_plan_raises_unsupported():
-    """No fallback executor: a plan still outside the port raises (a
-    string cast needs the executor's parser, a window function has no
-    fragment IR at all)."""
-    eng, _ref = _catalogs({"t": {"s": (["1", "22", None], "str", {}),
-                                 "k": (np.arange(3, dtype=np.int32), "I32",
-                                       {})}})
-    with pytest.raises(TF.Unsupported, match="not ported yet"):
-        eng.query("select cast(s as int) from t")
+    """The fragment compiler still raises ``Unsupported`` for a window
+    function (it has no fragment IR), and the engine then answers the plan
+    through the op-at-a-time executor; a string cast lowers in the fragment
+    again.  What is still outside the port raises and names its module."""
+    eng, ref = _catalogs({"t": {"s": (["1", "22", None], "str", {}),
+                                "k": (np.arange(3, dtype=np.int32), "I32",
+                                      {})}})
+    cast = "select cast(s as int) from t"
+    window = "select k, sum(k) over (order by k) from t"
+    rel, out_cols = eng.plan(window)
     with pytest.raises(TF.Unsupported, match="WinRef"):
-        eng.query("select k, sum(k) over (order by k) from t")
+        TF.CompiledFragment(eng.catalog, rel, [c.name for c in out_cols])
+    falls0 = TF.STATS["fallbacks"]
+    _assert_rows_equal(list(eng.query(cast).rows),
+                       list(ref.query(cast).rows))
+    assert TF.STATS["fallbacks"] == falls0
+    _assert_rows_equal(list(eng.query(window).rows),
+                       list(ref.query(window).rows))
+    assert TF.STATS["fallbacks"] == falls0 + 1
+    with pytest.raises(TF.Unsupported, match="not ported yet"):
+        eng.query("select name from sys.tables")
 
 
 # ---------------------------------------------------------------------------
