@@ -68,22 +68,55 @@ Phases, one or more output lines each:
              query, device idle share, host waits on the stream per query,
              top kernels by device time; and the host's cost per eager op;
              then the same for the executor (3 warm runs).
+11. session - the SQL front door: ``load_tpch_db(SF, data=...)`` on the
+             card and the 22 queries through ``Session.sql``, one cold and
+             3 warm runs each: rows equal to the oracle, no fallback, per
+             warm run as many seg_sum64 launches as the slice phase's run
+             of the same query lowered anew (Session.sql lowers at every
+             run), warm runs served by the session's plan cache, every
+             table materialized on the card once.  Prints the Session
+             medians beside the Engine's.
+12. durable - a store on local disk under $TMPDIR at SF1: the eight tables
+             made by SQL DDL, loaded by COPY BINARY (one .npy per numeric
+             column, one text file per string column) and ``orders`` by
+             COPY INTO from a CSV through the native parser; checkpoint;
+             TPC-H's refresh functions at SF1 size (RF1 inserts 1,500
+             orders and their lineitems, RF2 deletes 1,500) and one UPDATE
+             of l_discount, each one committed transaction, then one more
+             RF1 rolled back; close without a checkpoint and reopen (WAL
+             replay).  Every committed change must be read back (count and
+             sums of every table against numpy over the changed arrays),
+             the rolled-back one must be absent, and the 22 queries must
+             equal the oracle over the changed arrays.  Prints load rate,
+             WAL written, checkpoint, refresh, commit-to-next-answer and
+             reopen times and the peak device memory across the refresh.
+13. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
+             (tests/sqllogic/ref, held to REF_LEDGER.md with the ledger
+             generator's CHAINS) through ``SqlLogicRunner(Session(
+             Database()))`` on the card: every pass file passes, every
+             known-fail fails.
 
-The launch counts are set to 0 just before phases 5, 6, 7, 8 and 9 and read
-just after each.  Then one JSON line with each kernel's launches on its path, error,
-times and bound, and as the last line
+The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11 and 12
+and read just after each.  Then one JSON line with each kernel's launches
+on its path, error, times and bound, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero without that line.
 """
 
 from __future__ import annotations
 
+import gc
+import glob
 import json
 import math
+import os
+import re
+import shutil
 import sqlite3
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -93,15 +126,20 @@ import torch
 
 from monetdb_tpu_torch import config
 from monetdb_tpu_torch.bench import tpcds, tpch_oracle
-from monetdb_tpu_torch.bench.tpch_gen import gen_tpch
-from monetdb_tpu_torch.bench.tpch_load import load_tpch
+from monetdb_tpu_torch.bench.tpch_gen import SCHEMA, gen_tpch
+from monetdb_tpu_torch.bench.tpch_load import load_tpch, load_tpch_db
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES
 from monetdb_tpu_torch.column import Column
 from monetdb_tpu_torch.dtypes import BOOL, I64
-from monetdb_tpu_torch.engine import Engine
+from monetdb_tpu_torch.engine import Engine, plan_cache_stats
 from monetdb_tpu_torch.exec import fragment
 from monetdb_tpu_torch.ops import cuda_kernels as CK
 from monetdb_tpu_torch.ops import window as W
+from monetdb_tpu_torch.session import Session
+from monetdb_tpu_torch.storage import Database, csv_native
+from monetdb_tpu_torch.testing import SqlLogicRunner
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SF = 1.0
 KERNEL_NS = (1 << 23, 6_001_215)
@@ -432,7 +470,11 @@ def phase_fused(cat, want_q1, q1_entry: dict, gsl_entry: dict) -> None:
          f"with its mask compare")
 
 
-def phase_slice(dev, cat, resident: int, want: dict, entry: dict) -> Engine:
+def phase_slice(dev, cat, resident: int, want: dict, entry: dict,
+                per_query: dict) -> Engine:
+    """The 22 queries through ``Engine.query``; fills ``per_query[q]`` with
+    the warm median (ms) and the seg_sum64 launches of one run lowered
+    anew, as ``Session.sql`` runs a query."""
     eng = Engine(cat)
     for name in CK.LAUNCHES:
         CK.LAUNCHES[name] = 0           # the main path starts here
@@ -445,12 +487,20 @@ def phase_slice(dev, cat, resident: int, want: dict, entry: dict) -> Engine:
         cold = time.perf_counter() - t0
         warm = []
         for _ in range(WARM_RUNS):
+            last = CK.LAUNCHES["seg_sum64"]
             t0 = time.perf_counter()
             wrows = list(eng.query(QUERIES[q]).rows)
             warm.append(time.perf_counter() - t0)
             if wrows != rows:
                 raise AssertionError(f"Q{q}: warm rows differ from cold")
         launched = CK.LAUNCHES["seg_sum64"] - before
+        # one more run as Session.sql makes it: bound once, lowered anew
+        # (plan-time subqueries run again), then run
+        last = CK.LAUNCHES["seg_sum64"]
+        if list(eng.execute_plan(*eng.plan(QUERIES[q])).rows) != rows:
+            raise AssertionError(f"Q{q}: a fresh lowering changed the rows")
+        per_query[q] = {"median_ms": statistics.median(warm) * 1e3,
+                        "launches": CK.LAUNCHES["seg_sum64"] - last}
         if q in MUST_LAUNCH and launched <= 0:
             raise AssertionError(f"Q{q} did not launch seg_sum64")
         diff = tpch_oracle.rows_differ(
@@ -463,7 +513,8 @@ def phase_slice(dev, cat, resident: int, want: dict, entry: dict) -> Engine:
              f"{', '.join(f'{w * 1e3:.2f}' for w in warm)} ms "
              f"(median {statistics.median(warm) * 1e3:.2f} ms); "
              f"seg_sum64 launches {launched} "
-             f"({launched // (1 + WARM_RUNS)} a run after retries); "
+             f"({launched // (1 + WARM_RUNS)} a run after retries; "
+             f"{per_query[q]['launches']} in a run lowered anew); "
              f"cap_retries "
              f"{fragment.STATS['cap_retries'] - stats0['cap_retries']}, "
              f"uniq_retries "
@@ -894,6 +945,385 @@ def phase_tpcds(dev, seg_entry: dict) -> None:
     if seg_entry["launches_tpcds"] <= 0:
         raise AssertionError("the TPC-DS fragments launched no seg_sum64")
 
+# ---------------------------------------------------------------------------
+# Session and storage: the SQL front door over a store, in memory and on
+# disk, and the sqllogic corpus
+# ---------------------------------------------------------------------------
+
+#: warm runs of each query through Session.sql (one cold run before them)
+SESSION_WARM_RUNS = 3
+#: TPC-H's refresh functions at their SF1 size (TPC-H Specification
+#: v3.0.1, section 2.5: RF1 inserts and RF2 deletes SF * 1,500 orders with
+#: their lineitems); UPDATE_ORDERS orders get their l_discount raised
+REFRESH_ORDERS = 1500
+UPDATE_ORDERS = 10_000
+_SQL_TYPE = {"i32": "int", "dec2": "decimal(15,2)", "date": "date"}
+
+
+def phase_session(dev, data, want: dict, frag: dict, seg_entry: dict):
+    """The 22 queries through ``Session.sql`` over ``load_tpch_db(SF)`` on
+    the card: rows equal to the oracle, no fallback, per warm run the
+    fragment phase's seg_sum64 launches, warm runs served by the session's
+    plan cache, and each table materialized on the card once."""
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    db = load_tpch_db(SF, data=data, device=dev)
+    _log(f"session: load_tpch_db({SF}, device={dev}) "
+         f"{time.perf_counter() - t0:.2f} s (host tables; uploads happen "
+         f"at first use)")
+    s = Session(db)
+    _zero_launches()                    # the session path starts here
+    falls0 = fragment.STATS["fallbacks"]
+    cache0 = plan_cache_stats()
+    first = {}                          # table -> its one materialization
+    medians = {}
+    for q in SLICE_QUERIES:
+        sql = QUERIES[q]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rows = list(s.sql(sql).rows)
+        cold = time.perf_counter() - t0
+        bound = s._plan_cache.get(" ".join(sql.split()))
+        for name, (_v, tbl, _oids) in db._device.items():
+            first.setdefault(name, tbl)
+        warm = []
+        for _ in range(SESSION_WARM_RUNS):
+            last = CK.LAUNCHES["seg_sum64"]
+            t0 = time.perf_counter()
+            wrows = list(s.sql(sql).rows)
+            warm.append(time.perf_counter() - t0)
+            if wrows != rows:
+                raise AssertionError(f"session Q{q}: warm rows differ")
+        launched = CK.LAUNCHES["seg_sum64"] - last
+        if bound is None or s._plan_cache.get(" ".join(sql.split())) \
+                is not bound:
+            raise AssertionError(f"session Q{q}: a warm run bound the "
+                                 f"query again")
+        diff = tpch_oracle.rows_differ(
+            rows, tpch_oracle.decoded(q, want[q]), AVG_RTOL)
+        if diff or not rows:
+            raise AssertionError(f"session Q{q} != oracle: "
+                                 f"{diff or 'no rows'}")
+        if launched != frag[q]["launches"]:
+            raise AssertionError(
+                f"session Q{q}: {launched} seg_sum64 launches a warm run, "
+                f"the fragment phase's fresh lowering "
+                f"{frag[q]['launches']}")
+        medians[q] = statistics.median(warm) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        _log(f"session: Q{q} SF{SF} rows={len(rows)} equal to oracle; cold "
+             f"{cold * 1e3:.1f} ms, warm "
+             f"{', '.join(f'{w * 1e3:.2f}' for w in warm)} ms (median "
+             f"{medians[q]:.2f} ms, Engine {frag[q]['median_ms']:.2f} ms); "
+             f"seg_sum64 launches a warm run {launched}; peak device "
+             f"memory {peak / 2**20:.1f} MiB")
+    if fragment.STATS["fallbacks"] != falls0:
+        raise AssertionError("the session phase fell back to the executor")
+    stale = [n for n, t in first.items() if db._device[n][1] is not t]
+    if stale or sorted(first) != sorted(db.tables) or any(
+            v != db.tables[n].version for n, (v, _t, _o) in
+            db._device.items()):
+        raise AssertionError(f"tables materialized more than once: {stale}")
+    seg_entry["launches_session"] = CK.LAUNCHES["seg_sum64"]
+    if seg_entry["launches_session"] <= 0:
+        raise AssertionError("the session path launched no seg_sum64")
+    _log(f"session: 22 queries equal to the oracle, 0 fallbacks, "
+         f"seg_sum64 launches {seg_entry['launches_session']}; each of "
+         f"{len(first)} tables materialized once "
+         f"({(torch.cuda.memory_allocated(dev) - base) / 2**20:.1f} MiB "
+         f"on the card with __rowid__); bound plans cached by the session "
+         f"({len(s._plan_cache)}), engine plan cache {cache0} -> "
+         f"{plan_cache_stats()} (Session.sql lowers at every run)")
+    _log("session: warm medians ms, Session / Engine: " + ", ".join(
+        f"Q{q} {medians[q]:.2f}/{frag[q]['median_ms']:.2f}"
+        for q in SLICE_QUERIES))
+
+
+def _tpch_ddl(data) -> list:
+    stmts = []
+    for tname, cols in SCHEMA.items():
+        decl = []
+        for c, tag in cols.items():
+            if tag == "str":
+                width = max(1, int(np.char.str_len(data[tname][c]).max()))
+                decl.append(f"{c} varchar({width})")
+            else:
+                decl.append(f"{c} {_SQL_TYPE[tag]}")
+        stmts.append(f"create table {tname} ({', '.join(decl)})")
+    return stmts
+
+
+def _csv_text(cols: dict, tags: dict) -> str:
+    """Rows as '|'-delimited text: decimals as d.dd, dates as ISO."""
+    fields = []
+    for c, tag in tags.items():
+        v = cols[c]
+        if tag == "dec2":
+            fields.append([f"{x // 100}.{x % 100:02d}" for x in v.tolist()])
+        elif tag == "date":
+            fields.append(v.astype("datetime64[D]").astype(str).tolist())
+        else:
+            fields.append(v.astype(str).tolist())
+    return "".join("|".join(r) + "\n" for r in zip(*fields))
+
+
+def _load_durable(s, data, folder: str) -> int:
+    """DDL by SQL, then every table by COPY BINARY (one .npy per numeric
+    column, one text file per string column), but orders by COPY INTO from
+    a CSV through the native parser.  Returns the rows loaded."""
+    for st in _tpch_ddl(data):
+        s.sql(st)
+    total = 0
+    for tname, tags in SCHEMA.items():
+        cols = data[tname]
+        if tname == "orders":
+            path = os.path.join(folder, "orders.csv")
+            with open(path, "w") as f:
+                f.write(_csv_text(cols, tags))
+            n = s.sql(f"copy into orders from '{path}'")
+        else:
+            paths = []
+            for c, tag in tags.items():
+                if tag == "str":
+                    paths.append(os.path.join(folder, f"{tname}.{c}.txt"))
+                    with open(paths[-1], "w") as f:
+                        f.write("\n".join(cols[c].tolist()) + "\n")
+                else:
+                    paths.append(os.path.join(folder, f"{tname}.{c}.npy"))
+                    np.save(paths[-1], cols[c])
+            n = s.sql(f"copy binary into {tname} from ("
+                      + ", ".join(f"'{p}'" for p in paths) + ")")
+        if n != len(next(iter(cols.values()))):
+            raise AssertionError(f"durable: {tname} loaded {n} rows")
+        total += n
+    return total
+
+
+def _refresh_sql(tname: str, offset: int, upto: int) -> str:
+    key = "o_orderkey" if tname == "orders" else "l_orderkey"
+    cols = [f"{c} + {offset}" if c == key else c for c in SCHEMA[tname]]
+    return (f"insert into {tname} select {', '.join(cols)} from {tname} "
+            f"where {key} <= {upto}")
+
+
+def _refreshed(data, keys):
+    """The generated arrays with what phase_durable commits: RF1 (the
+    first REFRESH_ORDERS orders by key copied under key + max key), RF2
+    (the REFRESH_ORDERS orders from the (2 * REFRESH_ORDERS)-th key on
+    deleted) and the l_discount update (UPDATE_ORDERS orders from the
+    (4 * REFRESH_ORDERS)-th key on); all as numpy over the same arrays."""
+    r = REFRESH_ORDERS
+    kmax, upto = int(keys[-1]), int(keys[r - 1])
+    lo, hi = int(keys[2 * r]), int(keys[3 * r - 1])
+    ulo, uhi = int(keys[4 * r]), int(keys[4 * r + UPDATE_ORDERS - 1])
+    out = dict(data)
+    for tname, key in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
+        cols = data[tname]
+        sel = cols[key] <= upto
+        new = {c: v[sel] for c, v in cols.items()}
+        new[key] = new[key] + np.int32(kmax)
+        both = {c: np.concatenate([cols[c], new[c]]) for c in cols}
+        keep = ~((both[key] >= lo) & (both[key] <= hi))
+        out[tname] = {c: v[keep] for c, v in both.items()}
+    li = out["lineitem"]
+    li["l_discount"] = li["l_discount"] + np.where(
+        (li["l_orderkey"] >= ulo) & (li["l_orderkey"] <= uhi), 1, 0)
+    return out, (kmax, upto, lo, hi, ulo, uhi)
+
+
+def _table_checks(data) -> dict:
+    """table -> (SQL of count(*) and the sum of every integer and decimal
+    column, the same from numpy with decimals in hundredths)."""
+    checks = {}
+    for tname, tags in SCHEMA.items():
+        num = [c for c, tag in tags.items() if tag in ("i32", "dec2")]
+        sql = (f"select count(*), "
+               + ", ".join(f"sum({c})" for c in num) + f" from {tname}")
+        cols = data[tname]
+        want = [len(cols[num[0]])] + [int(cols[c].astype(np.int64).sum())
+                                      for c in num]
+        checks[tname] = (sql, want)
+    return checks
+
+
+def phase_durable(dev, data) -> None:
+    """A store on local disk at SF1: DDL by SQL, COPY BINARY and COPY INTO
+    (native CSV parser), checkpoint, TPC-H RF1 / RF2 and an UPDATE as
+    committed transactions, one RF1 rolled back, then a close without a
+    checkpoint and a reopen that replays the WAL.  Every committed change
+    must be read back, the rolled-back one must be absent, and the 22
+    queries must equal the oracle over the changed arrays."""
+    if not csv_native.native_available():
+        raise AssertionError("the native CSV parser did not build")
+    folder = tempfile.mkdtemp(prefix="mtpu_durable_")
+    try:
+        _durable(dev, data, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def _durable(dev, data, folder: str) -> None:
+    path = os.path.join(folder, "db")
+    wal = os.path.join(path, "wal.log")
+    torch.cuda.empty_cache()
+    db = Database(path, device=dev)
+    s = Session(db)
+    t0 = time.perf_counter()
+    rows = _load_durable(s, data, folder)
+    t_load = time.perf_counter() - t0
+    wal_bytes = os.path.getsize(wal)
+    _log(f"durable: DDL + COPY BINARY (7 tables) + COPY INTO orders from "
+         f"CSV (native parser) {rows} rows in {t_load:.2f} s: "
+         f"{rows / t_load:.0f} rows/s, WAL {wal_bytes / 1e6:.1f} MB "
+         f"({wal_bytes / 1e6 / t_load:.1f} MB/s written)")
+    t0 = time.perf_counter()
+    db.checkpoint()
+    _log(f"durable: checkpoint {time.perf_counter() - t0:.2f} s, WAL now "
+         f"{os.path.getsize(wal)} bytes, data/ "
+         f"{sum(os.path.getsize(os.path.join(path, 'data', f)) for f in os.listdir(os.path.join(path, 'data'))) / 1e6:.1f} MB")
+    keys = np.sort(data["orders"]["o_orderkey"])
+    changed, (kmax, upto, lo, hi, ulo, uhi) = _refreshed(data, keys)
+    s.sql("select count(*) from lineitem")      # materialized before
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    s.sql("start transaction")                   # RF1
+    n1 = s.sql(_refresh_sql("orders", kmax, upto))
+    n2 = s.sql(_refresh_sql("lineitem", kmax, upto))
+    s.sql("commit")
+    t_rf1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.sql("start transaction")                   # RF2
+    d2 = s.sql(f"delete from lineitem where l_orderkey between {lo} and "
+               f"{hi}")
+    d1 = s.sql(f"delete from orders where o_orderkey between {lo} and {hi}")
+    s.sql("commit")
+    t_rf2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u = s.sql(f"update lineitem set l_discount = l_discount + 0.01 where "
+              f"l_orderkey between {ulo} and {uhi}")
+    t_upd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.sql("select count(*) from lineitem")
+    t_next = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.sql("select count(*) from lineitem")
+    t_again = time.perf_counter() - t0
+    s.sql("start transaction")                   # RF1, rolled back
+    r1 = s.sql(_refresh_sql("orders", 2 * kmax, upto))
+    r2 = s.sql(_refresh_sql("lineitem", 2 * kmax, upto))
+    s.sql("rollback")
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    after = torch.cuda.memory_allocated(dev) - before
+    want_counts = (REFRESH_ORDERS, len(changed["lineitem"]["l_orderkey"])
+                   - len(data["lineitem"]["l_orderkey"]) + d2)
+    if (n1, n2) != want_counts or d1 != REFRESH_ORDERS or (r1, r2) != \
+            (n1, n2) or u <= 0:
+        raise AssertionError(f"durable: affected rows RF1 {n1}/{n2}, RF2 "
+                             f"{d1}/{d2}, update {u}, rolled back {r1}/{r2}")
+    _log(f"durable: RF1 (+{n1} orders, +{n2} lineitems) {t_rf1:.2f} s, RF2 "
+         f"(-{d1} orders, -{d2} lineitems) {t_rf2:.2f} s, UPDATE "
+         f"l_discount of {u} lineitems {t_upd:.2f} s, each one committed "
+         f"transaction; RF1 again, rolled back; WAL "
+         f"{os.path.getsize(wal) / 1e6:.1f} MB; commit to next answer "
+         f"(lineitem uploaded again) {t_next * 1e3:.1f} ms, the answer "
+         f"after {t_again * 1e3:.1f} ms; device memory above the tables: "
+         f"peak {peak / 2**20:.1f} MiB across the refresh, "
+         f"{after / 2**20:+.1f} MiB held after it; engine plan cache "
+         f"{plan_cache_stats()} (its entries pin the Table versions they "
+         f"were bound to, up to 4 per SQL text)")
+    db.close()
+    del s, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    db = Database(path, device=dev)
+    t_reopen = time.perf_counter() - t0
+    s = Session(db)
+    for tname, (sql, want) in _table_checks(changed).items():
+        got = [int(v.scaleb(2)) if hasattr(v, "scaleb") else int(v)
+               for v in s.sql(sql).rows[0]]
+        if got != want:
+            raise AssertionError(f"durable: {tname} after the replay "
+                                 f"{got} != numpy {want}")
+    gone = s.sql(f"select count(*) from orders where o_orderkey > "
+                 f"{2 * kmax}").rows[0][0]
+    if gone:
+        raise AssertionError(f"durable: {gone} rolled-back orders read back")
+    t0 = time.perf_counter()
+    oracle = {q: tpch_oracle.ORACLES[q](changed) for q in SLICE_QUERIES}
+    t_oracle = time.perf_counter() - t0
+    _zero_launches()
+    times = []
+    for q in SLICE_QUERIES:
+        t0 = time.perf_counter()
+        got = list(s.sql(QUERIES[q]).rows)
+        times.append(f"Q{q} {(time.perf_counter() - t0) * 1e3:.1f}")
+        diff = tpch_oracle.rows_differ(
+            got, tpch_oracle.decoded(q, oracle[q]), AVG_RTOL)
+        if diff or not got:
+            raise AssertionError(f"durable Q{q} after the replay != oracle: "
+                                 f"{diff or 'no rows'}")
+    db.close()
+    _log(f"durable: reopen (WAL replay) {t_reopen:.2f} s; every committed "
+         f"change read back (count and sums of 8 tables), the rolled-back "
+         f"RF1 absent; 22 queries equal to the oracle over the changed "
+         f"arrays ({t_oracle:.1f} s there), first runs ms: "
+         f"{', '.join(times)}; seg_sum64 launches {CK.LAUNCHES['seg_sum64']}")
+
+
+def _ledger() -> dict:
+    out = {}
+    with open(os.path.join(ROOT, "tests", "sqllogic", "REF_LEDGER.md")) as f:
+        for line in f:
+            m = re.match(r"\|\s*(\S+\.test)\s*\|\s*(pass|FAIL)\s*\|", line)
+            if m:
+                out[m.group(1)] = m.group(2)
+    return out
+
+
+def phase_sqllogic(dev) -> None:
+    """tests/sqllogic/*.test, then every file of the pinned reference
+    corpus held to its ledger, each file on a fresh store on the card."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from gen_ref_ledger import CHAINS
+    t0 = time.perf_counter()
+    local = sorted(glob.glob(os.path.join(ROOT, "tests", "sqllogic",
+                                          "*.test")))
+    records = 0
+    for path in local:
+        n = SqlLogicRunner(Session(Database(device=dev))).run_file(path)
+        if n <= 0:
+            raise AssertionError(f"sqllogic: {path} ran no records")
+        records += n
+    led = _ledger()
+    ref = os.path.join(ROOT, "tests", "sqllogic", "ref")
+    wrong = []
+    for name in sorted(led):
+        db = Database(device=dev)
+        prereqs, user = CHAINS.get(name, ([], None))
+        for pre in prereqs:
+            SqlLogicRunner(Session(db)).run_file(os.path.join(ref, pre))
+        runner = SqlLogicRunner(Session(db, user=user))
+        try:
+            records += runner.run_file(os.path.join(ref, name))
+            got = "pass"
+        except Exception as ex:         # the ledger counts any failure
+            records += runner.n_run
+            got, why = "FAIL", f"{type(ex).__name__}: {ex}"[:200]
+        if got != led[name]:
+            wrong.append(f"{name}: ledger {led[name]}, got {got}"
+                         + (f" ({why})" if got == "FAIL" else ""))
+    secs = time.perf_counter() - t0
+    if wrong:
+        raise AssertionError("sqllogic: " + "; ".join(wrong[:10]))
+    n_fail = sum(st == "FAIL" for st in led.values())
+    _log(f"sqllogic: {len(local)} local files and {len(led)} ledger files "
+         f"({len(led) - n_fail} pass, {n_fail} known-fail) as the ledger "
+         f"says; {records} records in {secs:.1f} s on {dev}")
+
+
 
 def phase_profile(dev, eng: Engine) -> None:
     """Per query: warm runs under torch.profiler (device busy time and
@@ -974,15 +1404,19 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     cat, resident, want, data = phase_load(dev)
     phase_fused(cat, want[1], q1, gsl)
-    eng = phase_slice(dev, cat, resident, want, seg)
+    frag = {}
+    eng = phase_slice(dev, cat, resident, want, seg, frag)
     phase_executor(dev, eng, resident, want)
     phase_window(dev, eng, resident, data)
     phase_window_primitives(dev)
     if "--profile" in argv:
         phase_profile(dev, eng)
-    del eng, cat, data, want
+    del eng, cat
     torch.cuda.empty_cache()
     phase_tpcds(dev, seg)
+    phase_session(dev, data, want, frag, seg)
+    phase_durable(dev, data)
+    phase_sqllogic(dev)
     _log(json.dumps({"kernels": [seg, q1, gsl]}))
     _log(json.dumps({"ok": True, "device": device}))
     return 0

@@ -22,7 +22,7 @@ from ..dtypes import DATE, I32, I64, decimal, is_nil_np, varchar
 from ..table import Catalog, Table
 from .tpch_gen import SCHEMA, gen_tpch
 
-__all__ = ["load_tpch", "load_tables", "make_column"]
+__all__ = ["load_tpch", "load_tables", "load_tpch_db", "make_column"]
 
 _TYPES = {
     "i32": I32,
@@ -178,3 +178,26 @@ def load_tpch(sf: float = 0.01, *, device="cuda",
     if cache:
         _cache[key] = cat
     return cat
+
+
+def load_tpch_db(sf: float = 0.01, data=None, *, device="cuda"):
+    """TPC-H loaded into an in-memory ``Database`` on ``device`` — the SQL
+    *product* path (``Session``, embedded, DB-API).  Bulk-appends physical
+    arrays directly (COPY INTO's ``TableData.append`` path, the role of
+    modules/mal/tablet.c); ``data`` is ``gen_tpch(sf)``'s dict when the
+    caller already holds it."""
+    from ..storage.database import Database
+    db = Database(device=device)
+    if data is None:
+        data = gen_tpch(sf)
+    for tname, cols in data.items():
+        schema = SCHEMA[tname]
+        db.create_table(tname, [(c, _TYPES[schema[c]]) for c in cols])
+        td = db.tables[tname]
+        arrays = {}
+        for c, v in cols.items():
+            tag = schema[c]
+            arrays[c] = v if tag == "str" else \
+                v.astype(_TYPES[tag].np_dtype, copy=False)
+        td.append(arrays)
+    return db

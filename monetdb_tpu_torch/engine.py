@@ -28,7 +28,8 @@ from .exec.fragment import CompiledFragment, Unsupported, stats_inc
 from .sql.binder import bind_select
 from .table import Catalog
 
-__all__ = ["Engine", "Result", "Unsupported", "ExecError"]
+__all__ = ["Engine", "Result", "Unsupported", "ExecError",
+           "plan_cache_clear", "plan_cache_stats"]
 
 
 # ---------------------------------------------------------------------------
@@ -49,11 +50,16 @@ _PLAN_VARIANTS = 4     # catalog snapshots per SQL text
 class _CachedPlan:
     tables: dict           # name -> Table identity pins
     views: dict
+    udfs: dict
     rel: object
     out_cols: list
     fragment: Optional[CompiledFragment]   # None = executor only
     unsupported: Optional[str]   # lowering-time fallback reason
     frag_enabled: bool = True    # fragment_exec config at bind time
+    #: table -> schema mapping at bind time: schema-qualified name
+    #: resolution (ALTER ... SET SCHEMA / schema renames) must
+    #: invalidate cached plans
+    tschemas: Optional[dict] = None
 
 
 def _plan_valid(e: _CachedPlan, cat: Catalog) -> bool:
@@ -61,7 +67,24 @@ def _plan_valid(e: _CachedPlan, cat: Catalog) -> bool:
         return False
     if len(e.tables) != len(cat.tables) or e.views != cat.views:
         return False
+    if len(e.udfs) != len(cat.udfs) or \
+            any(cat.udfs.get(k) is not v for k, v in e.udfs.items()):
+        return False
+    if e.tschemas is not None and \
+            e.tschemas != (getattr(cat, "table_schemas", None) or {}):
+        return False
     return all(cat.tables.get(k) is v for k, v in e.tables.items())
+
+
+def plan_cache_clear() -> None:
+    with _PLAN_LOCK:
+        _PLAN_CACHE.clear()
+
+
+def plan_cache_stats() -> dict:
+    with _PLAN_LOCK:
+        return {"entries": sum(len(v) for v in _PLAN_CACHE.values()),
+                "sqls": len(_PLAN_CACHE)}
 
 
 class _LazyRows(list):
@@ -243,8 +266,12 @@ class Engine:
             except Unsupported as exc:
                 unsupported = str(exc)
         entry = _CachedPlan(dict(self.catalog.tables),
-                            dict(self.catalog.views), rel, out_cols,
-                            fragment, unsupported, frag_enabled=frag_enabled)
+                            dict(self.catalog.views),
+                            dict(self.catalog.udfs), rel, out_cols,
+                            fragment, unsupported, frag_enabled=frag_enabled,
+                            tschemas=dict(getattr(self.catalog,
+                                                  "table_schemas", None)
+                                          or {}))
         with _PLAN_LOCK:
             lst = _PLAN_CACHE.setdefault(sql, [])
             lst[:] = [e for e in lst if _plan_valid(e, self.catalog)]
@@ -301,16 +328,19 @@ class Engine:
     def _run_fragment(self, fragment, out_cols,
                       trace: bool) -> Optional[Result]:
         """Run a lowered fragment; None = fall back to the executor."""
+        from .sql.syscat import CURRENT_QUERY, QUEUE
         events = [] if trace else None
         names = [getattr(c, "display", None) or c.name for c in out_cols]
         if trace:
             events.append({"op": "fragment.lower",
                            "usec": int(fragment.lower_ms * 1e3)})
+        QUEUE.check(CURRENT_QUERY.tag)
         try:
             fr = fragment.run(events=events)
         except Unsupported:
             stats_inc("fallbacks")
             return None
+        QUEUE.check(CURRENT_QUERY.tag)
 
         def make_rows():
             decoded = [

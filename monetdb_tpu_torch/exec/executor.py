@@ -394,6 +394,10 @@ class Executor:
         m = getattr(self, "_exec_" + type(rel).__name__.lower(), None)
         if m is None:
             raise ExecError(f"no executor for {type(rel).__name__}")
+        # cooperative stop/timeout between operators (sysmon pause/stop,
+        # mal_runtime.c QRYqueue status; mal_interpreter checks per instr)
+        from ..sql.syscat import CURRENT_QUERY, QUEUE
+        QUEUE.check(CURRENT_QUERY.tag)
         from ..obs import PROFILER
         if not PROFILER.enabled:
             out = m(rel)
@@ -401,6 +405,9 @@ class Executor:
             with PROFILER.op(type(rel).__name__, label=rel._label()):
                 out = m(rel)
             PROFILER.events[-1]["rows"] = out.count
+        # post-check: an operator that overran the deadline (or was
+        # stopped mid-flight) aborts as soon as it returns
+        QUEUE.check(CURRENT_QUERY.tag)
         # GDKdebug-style property validation of the operator's output
         # (BATassertProps after each op, gdk/gdk_bat.c)
         if config.get("assert_props") and isinstance(out, Frame):
@@ -412,11 +419,9 @@ class Executor:
         if r.table not in self.catalog:
             # plan-cache hit on a fresh catalog: system relations are
             # materialized at bind time, so re-materialize here
-            from ..sql.syscat import is_system_table
+            from ..sql.syscat import is_system_table, system_table
             if is_system_table(r.table):
-                raise ExecError(f"system table {r.table}: needs "
-                                "sql/syscat.system_table over the storage "
-                                "layer, which is not ported yet")
+                self.catalog.add(system_table(self.catalog, r.table))
         t = self.catalog.get(r.table)
         wanted = self.refs.get(r.alias) or self.refs.get(r.table) or set()
         names = [n for n in t.names() if n in wanted] or t.names()[:1]
@@ -426,12 +431,12 @@ class Executor:
         return self.exec_rel(r.child).rename(r.alias)
 
     def _exec_remotescan(self, r: L.RemoteScan) -> Frame:
-        raise ExecError("RemoteScan: needs sql/distribute.py and the server "
-                        "client, which are not ported yet")
+        raise ExecError("RemoteScan: needs the server client (server.py), "
+                        "which is not ported yet")
 
     def _exec_remotequery(self, r: L.RemoteQuery) -> Frame:
-        raise ExecError("RemoteQuery: needs sql/distribute.py and the "
-                        "server client, which are not ported yet")
+        raise ExecError("RemoteQuery: needs the server client (server.py), "
+                        "which is not ported yet")
 
     def _exec_filter(self, r: L.Filter) -> Frame:
         fr = self.exec_rel(r.child)
@@ -1752,8 +1757,20 @@ class Executor:
                         "which is not ported yet")
 
     def _eval_udf(self, u, e: Func, fr: Frame):
-        raise ExecError(f"user-defined function {u.name}: needs udf.py, "
-                        "which is not ported yet")
+        """Vectorized Python UDF call (pyapi3 analog): columns → host
+        numpy → body → column of the declared type on this device."""
+        from ..obs import set_algorithm
+        from ..udf import udf_from_host, udf_to_host
+        args = []
+        for a in e.args:
+            v = self.eval(a, fr)
+            if isinstance(v, Scalar):
+                args.append(v.value)
+            else:
+                args.append(udf_to_host(v, v.typ))
+        set_algorithm(f"python_udf:{u.name}")
+        res = u.fn(*args)
+        return udf_from_host(res, fr.count, u.ret_type, self.device)
 
     def _eval_math(self, e: Func, fr: Frame):
         """mmath/batmmath parity (modules/kernel/batmmath.c): float math

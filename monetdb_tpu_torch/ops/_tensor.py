@@ -49,10 +49,14 @@ def nilm(x: torch.Tensor) -> torch.Tensor:
 
 
 def catalog_device(catalog, error=ValueError) -> torch.device:
-    """The one device that holds every tensor of ``catalog``; raises
-    ``error`` when they are spread over several (or there is none)."""
+    """The one device that holds every tensor of ``catalog`` (and its
+    ``device`` attribute, which a store's catalog carries even when it
+    holds no table); raises ``error`` when they are spread over several
+    (or there is none)."""
     devs = {c.data.device for t in catalog.tables.values()
             for c in t.columns.values()}
+    if getattr(catalog, "device", None) is not None:
+        devs.add(catalog.device)
     if len(devs) != 1:
         raise error(f"catalog tensors on {sorted(map(str, devs))}: "
                     "need exactly one device")

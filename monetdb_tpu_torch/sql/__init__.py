@@ -1,4 +1,3 @@
-"""SQL front end: lexer, parser and binder (SQL text -> logical plan).
-
-Copies of the reference package's host-only modules; the Session layer is
-not ported yet."""
+"""SQL front end: lexer, parser, binder, PSM, distribution DDL and system
+relations (SQL text -> logical plan).  Copies of the reference package's
+host-only modules; ``session.Session`` drives them over a ``Database``."""

@@ -18,6 +18,8 @@ from monetdb_tpu_torch.bench import tpch_oracle
 from monetdb_tpu_torch.ops import calc as TC
 from monetdb_tpu_torch.ops import cuda_kernels as CK
 
+import torch_session_scripts as S
+
 
 @pytest.fixture
 def cuda_device():
@@ -912,3 +914,112 @@ def test_tpcds_loader_defaults_to_the_card(cuda_device):
                 1e-9) is None, (mod.__name__, qid)
             assert fragment.STATS["fallbacks"] - falls0 == \
                 2 * (mod is tpcds and qid in ("53", "89", "98"))
+
+
+# ---------------------------------------------------------------------------
+# slice F: Session and storage on the card against the port's own CPU
+# store.  The scripts live in tests/torch_session_scripts.py (no JAX);
+# tests/test_torch_session.py holds the CPU to the reference on them.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_database_defaults_to_the_card(cuda_device):
+    from monetdb_tpu_torch.session import Session
+    from monetdb_tpu_torch.storage import Database
+    db = Database()
+    assert db.device.type == "cuda" and db.device.index is not None
+    s = Session(db)
+    s.sql("create table t (a int, s varchar(3))")
+    s.sql("insert into t values (1, 'x'), (2, null)")
+    assert s.sql("select sum(a), count(s) from t").rows == [(3, 1)]
+    tbl, _oids = db.table("t")
+    assert all(c.data.device == db.device for c in tbl.columns.values())
+    env = dict(s.sql("select name, value from sys.env").rows)
+    assert env["jax_backend"] == torch.cuda.get_device_name(db.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(S.SCRIPTS))
+def test_session_scripts_on_gpu_match_cpu(cuda_device, name, tmp_path):
+    from monetdb_tpu_torch.session import Session
+    from monetdb_tpu_torch.sql import binder
+    from monetdb_tpu_torch.storage import Database
+    out = {}
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        binder.Binder._auto_counter = 0
+        out[dev] = S.run_script(lambda: Session(Database(device=dev)),
+                                S.SCRIPTS[name], str(tmp_path / dev),
+                                lambda s: Session(s.db))
+    S.assert_outcomes_equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", range(1, 23))
+def test_session_tpch_on_gpu_matches_oracle(cuda_device, engines_by_sf, q):
+    """The 22 queries through Session.sql over load_tpch_db(0.01) on the
+    card: the numpy oracle's rows, no fallback."""
+    from monetdb_tpu_torch.bench.tpch_load import load_tpch_db
+    from monetdb_tpu_torch.bench.tpch_queries import QUERIES
+    from monetdb_tpu_torch.exec import fragment
+    data = engines_by_sf(0.01)[0]
+    s = _tpch_session(load_tpch_db, data)
+    falls = fragment.STATS["fallbacks"]
+    got = list(s.sql(QUERIES[q]).rows)
+    want = tpch_oracle.decoded(q, tpch_oracle.ORACLES[q](data))
+    assert tpch_oracle.rows_differ(got, want, 1e-12) is None
+    assert list(s.sql(QUERIES[q]).rows) == got
+    assert fragment.STATS["fallbacks"] == falls
+    assert all(t.col(t.names()[0]).data.is_cuda
+               for t in s.db.catalog().tables.values())
+
+
+_TPCH_SESSION = {}
+
+
+def _tpch_session(load_tpch_db, data):
+    from monetdb_tpu_torch.session import Session
+    if "s" not in _TPCH_SESSION:
+        _TPCH_SESSION["s"] = Session(load_tpch_db(0.01, data))
+    return _TPCH_SESSION["s"]
+
+
+@pytest.mark.cuda
+def test_durable_store_on_gpu(cuda_device, tmp_path):
+    """Writes to a store on the card survive a close without checkpoint
+    (WAL replay) and a checkpoint; a rolled-back transaction does not."""
+    from monetdb_tpu_torch.session import Session
+    from monetdb_tpu_torch.storage import Database
+    path = str(tmp_path / "db")
+    s = Session(Database(path))
+    s.sql("create table t (a int, b varchar(4), c decimal(8,2))")
+    s.sql("insert into t values (1, 'x', 1.25), (2, 'y', null)")
+    s.sql("start transaction")
+    s.sql("insert into t values (3, 'z', 9)")
+    s.sql("rollback")
+    s.sql("update t set c = 7.5 where a = 2")
+    want = s.sql("select * from t order by a").rows
+    s.db.close()
+    db = Database(path)
+    assert Session(db).sql("select * from t order by a").rows == want
+    db.checkpoint()
+    db.close()
+    assert Session(Database(path)).sql(
+        "select * from t order by a").rows == want
+    assert Session(Database(path, device="cpu")).sql(
+        "select * from t order by a").rows == want
+
+
+@pytest.mark.cuda
+def test_sqllogic_files_on_gpu(cuda_device):
+    import glob
+    import os
+    from monetdb_tpu_torch.session import Session
+    from monetdb_tpu_torch.storage import Database
+    from monetdb_tpu_torch.testing import SqlLogicRunner
+    files = sorted(glob.glob(os.path.join(os.path.dirname(__file__),
+                                          "sqllogic", "*.test")))
+    assert len(files) == 6
+    for f in files:
+        assert SqlLogicRunner(Session(Database())).run_file(f) > 0

@@ -30,7 +30,7 @@ from monetdb_tpu.ops.calc import CalcError as RefCalcError  # noqa: E402
 import monetdb_tpu_torch as T  # noqa: E402
 from monetdb_tpu_torch.bench.tpch_load import load_tpch  # noqa: E402
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
-from monetdb_tpu_torch.engine import Engine  # noqa: E402
+from monetdb_tpu_torch.engine import Engine, ExecError  # noqa: E402
 from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 from monetdb_tpu_torch.ops import calc as TC  # noqa: E402
 
@@ -166,7 +166,9 @@ def test_unported_plan_raises_unsupported():
     """The fragment compiler still raises ``Unsupported`` for a window
     function (it has no fragment IR), and the engine then answers the plan
     through the op-at-a-time executor; a string cast lowers in the fragment
-    again.  What is still outside the port raises and names its module."""
+    again.  A system table answers as the reference does (the storage layer
+    is ported); what is still outside the port raises and names its
+    module."""
     eng, ref = _catalogs({"t": {"s": (["1", "22", None], "str", {}),
                                 "k": (np.arange(3, dtype=np.int32), "I32",
                                       {})}})
@@ -182,8 +184,11 @@ def test_unported_plan_raises_unsupported():
     _assert_rows_equal(list(eng.query(window).rows),
                        list(ref.query(window).rows))
     assert TF.STATS["fallbacks"] == falls0 + 1
-    with pytest.raises(TF.Unsupported, match="not ported yet"):
-        eng.query("select name from sys.tables")
+    systab = "select name from sys.tables"
+    _assert_rows_equal(list(eng.query(systab).rows),
+                       list(ref.query(systab).rows))
+    with pytest.raises(ExecError, match="ops/geom.py"):
+        eng.query("select st_area(s) from t")
 
 
 # ---------------------------------------------------------------------------

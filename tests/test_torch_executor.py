@@ -291,13 +291,19 @@ WAITS_SQL = [
     ("select st_area(s) from r", "ops/geom.py"),
     ("select name from sys.tables", "storage"),
 ]
+#: modules a later slice ported: their statements answer as the reference
+PORTED = {"storage"}
 
 
 @pytest.mark.parametrize("sql,needle", WAITS_SQL)
 def test_waits_name_the_missing_module(exec_engines, sql, needle):
     """What this slice leaves out raises, and the message names the module
-    that is missing."""
-    eng, _ref = exec_engines
+    that is missing; once that module is ported (the storage layer, with
+    system tables), the statement answers as the reference does."""
+    eng, ref = exec_engines
+    if needle in PORTED:
+        assert_same(eng, ref, sql)
+        return
     with pytest.raises((ExecError, TF.Unsupported, ImportError)) as exc:
         eng.query(sql)
     assert needle in str(exc.value)
