@@ -6,7 +6,7 @@ PyTorch built for CUDA (no JAX needed):
 
     python3 chip_smoke.py [--profile]
 
-Phases, one or more output lines each:
+Phases, one or more output lines each, and a line with each phase's time:
 
 1. device  - requires torch.cuda; prints the card's name and power limit
              as ``nvidia-smi --query-gpu=name,power.limit`` gives them.
@@ -76,7 +76,19 @@ Phases, one or more output lines each:
              run), warm runs served by the session's plan cache, every
              table materialized on the card once.  Prints the Session
              medians beside the Engine's.
-12. durable - a store on local disk under $TMPDIR at SF1: the eight tables
+12. server - a ``Server`` over that store: one ``Client`` runs the 22
+             queries in JSON and in columnar mode (rows equal to the oracle,
+             seg_sum64 launches a query equal to the session phase's warm
+             run; wall over the wire beside the Session median), then 8
+             clients at once, each the 22 queries in a seeded shuffled
+             order (rows only; peak device memory); failing statements
+             leave the connection answering; ``dbapi.connect(host=...)``
+             in both modes; ``python -m monetdb_tpu_torch --host`` as a
+             subprocess; a remote table served by a second server on the
+             card, with a shipped predicate, against the local table; TLS
+             with a throwaway certificate (when openssl is there);
+             challenge-response auth.
+13. durable - a store on local disk under $TMPDIR at SF1: the eight tables
              made by SQL DDL, loaded by COPY BINARY (one .npy per numeric
              column, one text file per string column) and ``orders`` by
              COPY INTO from a CSV through the native parser; checkpoint;
@@ -90,14 +102,32 @@ Phases, one or more output lines each:
              equal the oracle over the changed arrays.  Prints load rate,
              WAL written, checkpoint, refresh, commit-to-next-answer and
              reopen times and the peak device memory across the refresh.
-13. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
+             Then the closed store is database ``db`` of a ``Farm`` on the
+             card: the 22 queries through its proxy (oracle over the
+             changed arrays), status, stop (must checkpoint), snapshot,
+             restore as ``db2`` and a ``Funnel`` counting lineitem in both.
+14. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
              (tests/sqllogic/ref, held to REF_LEDGER.md with the ledger
              generator's CHAINS) through ``SqlLogicRunner(Session(
              Database()))`` on the card: every pass file passes, every
              known-fail fails.
+15. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
+             polygon (64 vertices with a hole; a multipolygon), distance
+             sums to a polygon, multipolygon, linestring and point,
+             geographic DWithin, coordinate sums, st_area over 1,000
+             polygons: counts exactly and floats to rel 1e-9 against numpy
+             (even-odd ray cast, segment distance, haversine, shoelace);
+             peak device memory per query.
+16. external - ``external_sort`` of 2^27 seeded int64 (ascending,
+             descending) and of 2^26 values that are 90% one value, in
+             tiles of 2^24 rows; ``streaming_cumsum`` and
+             ``streaming_window_sum(w=1000)`` over the 2^27 values: equal
+             to numpy, peak device memory within 8 tiles; rows/s.  The
+             reference's 1B-row envelope is cut to 2^27 rows for time.
 
-The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11 and 12
-and read just after each.  Then one JSON line with each kernel's launches
+The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12
+and 13 (before its replayed queries, then again before the farm's) and
+read just after each.  Then one JSON line with each kernel's launches
 on its path, error, times and bound, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero without that line.
@@ -133,8 +163,12 @@ from monetdb_tpu_torch.column import Column
 from monetdb_tpu_torch.dtypes import BOOL, I64
 from monetdb_tpu_torch.engine import Engine, plan_cache_stats
 from monetdb_tpu_torch.exec import fragment
+from monetdb_tpu_torch.farm import Farm
 from monetdb_tpu_torch.ops import cuda_kernels as CK
+from monetdb_tpu_torch.ops import external as X
 from monetdb_tpu_torch.ops import window as W
+from monetdb_tpu_torch.ops.geom import GEOD_RADIUS
+from monetdb_tpu_torch.server import Client, ColumnarResult, Server
 from monetdb_tpu_torch.session import Session
 from monetdb_tpu_torch.storage import Database, csv_native
 from monetdb_tpu_torch.testing import SqlLogicRunner
@@ -978,6 +1012,7 @@ def phase_session(dev, data, want: dict, frag: dict, seg_entry: dict):
     cache0 = plan_cache_stats()
     first = {}                          # table -> its one materialization
     medians = {}
+    per_run = {}                        # seg_sum64 launches a warm run
     for q in SLICE_QUERIES:
         sql = QUERIES[q]
         torch.cuda.reset_peak_memory_stats(dev)
@@ -996,6 +1031,7 @@ def phase_session(dev, data, want: dict, frag: dict, seg_entry: dict):
             if wrows != rows:
                 raise AssertionError(f"session Q{q}: warm rows differ")
         launched = CK.LAUNCHES["seg_sum64"] - last
+        per_run[q] = launched              # the last warm run's
         if bound is None or s._plan_cache.get(" ".join(sql.split())) \
                 is not bound:
             raise AssertionError(f"session Q{q}: a warm run bound the "
@@ -1005,7 +1041,7 @@ def phase_session(dev, data, want: dict, frag: dict, seg_entry: dict):
         if diff or not rows:
             raise AssertionError(f"session Q{q} != oracle: "
                                  f"{diff or 'no rows'}")
-        if launched != frag[q]["launches"]:
+        if per_run[q] != frag[q]["launches"]:
             raise AssertionError(
                 f"session Q{q}: {launched} seg_sum64 launches a warm run, "
                 f"the fragment phase's fresh lowering "
@@ -1038,6 +1074,257 @@ def phase_session(dev, data, want: dict, frag: dict, seg_entry: dict):
     _log("session: warm medians ms, Session / Engine: " + ", ".join(
         f"Q{q} {medians[q]:.2f}/{frag[q]['median_ms']:.2f}"
         for q in SLICE_QUERIES))
+    return db, per_run, medians
+
+
+#: clients that run the 22 queries at once in phase_server
+SERVER_CLIENTS = 8
+
+
+def _check_oracle(where: str, q: int, rows, want: dict) -> None:
+    diff = tpch_oracle.rows_differ(rows, tpch_oracle.decoded(q, want[q]),
+                                   AVG_RTOL)
+    if diff or not rows:
+        raise AssertionError(f"{where} Q{q} != oracle: {diff or 'no rows'}")
+
+
+def phase_server(dev, db, data, want: dict, sess_launches: dict,
+                 sess_medians: dict, seg_entry: dict) -> None:
+    """The network front door over the SF1 store phase_session loaded on
+    the card: one Client runs the 22 queries in JSON and in columnar mode
+    (rows equal to the oracle, seg_sum64 launches a query equal to the
+    session phase's), then SERVER_CLIENTS clients at once in seeded
+    shuffled orders; errors leave the connection answering; TLS;
+    challenge-response auth; dbapi.connect(host=...); the CLI as a
+    subprocess; a remote table served by a second server on the card."""
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    srv = Server(db).start()
+    host, port = srv.address
+    try:
+        _server_queries(dev, srv, want, sess_launches, sess_medians,
+                        seg_entry)
+        _server_concurrent(dev, srv, want, base)
+        _server_errors(srv, want)
+        _server_dbapi_cli(srv, want)
+        _server_remote(dev, srv, data)
+        _server_tls(dev, db, want)
+        _server_auth(srv, db, want)
+    finally:
+        srv.stop()
+    held = torch.cuda.memory_allocated(dev) - base
+    _log(f"server: {host}:{port} stopped; device memory above the "
+         f"session's tables {held / 2**20:+.1f} MiB")
+
+
+def _server_queries(dev, srv, want, sess_launches, sess_medians,
+                    seg_entry) -> None:
+    cl = Client(*srv.address)
+    _zero_launches()                    # the server path starts here
+    falls0 = fragment.STATS["fallbacks"]
+    walls = {}
+    as_json = []                        # columnar requests answered in JSON
+    for columnar in (False, True):
+        mode = "columnar" if columnar else "json"
+        for q in SLICE_QUERIES:
+            last = CK.LAUNCHES["seg_sum64"]
+            t0 = time.perf_counter()
+            res = cl.sql(QUERIES[q], columnar=columnar)
+            rows = list(res.rows)
+            walls[(mode, q)] = (time.perf_counter() - t0) * 1e3
+            launched = CK.LAUNCHES["seg_sum64"] - last
+            _check_oracle(f"server {mode}", q, rows, want)
+            if columnar and not isinstance(res, ColumnarResult):
+                # a result with wide (lo, hi) sums has no raw columns
+                # and travels as JSON, in both packages
+                as_json.append(f"Q{q}")
+            if launched != sess_launches[q]:
+                raise AssertionError(
+                    f"server {mode} Q{q}: {launched} seg_sum64 launches, "
+                    f"the session phase's warm run {sess_launches[q]}")
+    cl.close()
+    if fragment.STATS["fallbacks"] != falls0:
+        raise AssertionError("the server path fell back to the executor")
+    seg_entry["launches_server"] = CK.LAUNCHES["seg_sum64"]
+    if seg_entry["launches_server"] <= 0:
+        raise AssertionError("the server path launched no seg_sum64")
+    _log(f"server: 22 queries in JSON and in columnar mode equal to the "
+         f"oracle, seg_sum64 launches {seg_entry['launches_server']} "
+         f"(each query's equal to the session phase's warm run); columnar "
+         f"requests answered in JSON (wide sums): "
+         f"{', '.join(as_json) or 'none'}")
+    _log("server: wall ms over the wire, JSON / columnar / Session.sql "
+         "warm median: " + ", ".join(
+             f"Q{q} {walls[('json', q)]:.2f}/{walls[('columnar', q)]:.2f}/"
+             f"{sess_medians[q]:.2f}" for q in SLICE_QUERIES))
+
+
+def _server_concurrent(dev, srv, want, base) -> None:
+    import threading
+    torch.cuda.reset_peak_memory_stats(dev)
+    errors, walls = [], []
+
+    def client(i):
+        order = list(SLICE_QUERIES)
+        np.random.default_rng(100 + i).shuffle(order)
+        try:
+            cl = Client(*srv.address)
+            t0 = time.perf_counter()
+            for q in order:
+                _check_oracle(f"server client {i}", q,
+                              list(cl.sql(QUERIES[q]).rows), want)
+            walls.append(time.perf_counter() - t0)
+            cl.close()
+        except Exception:               # reported by the main thread
+            errors.append(f"client {i}: {traceback.format_exc()}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("server: a client did not finish in 600 s")
+    if errors:
+        raise AssertionError("; ".join(errors[:4]))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    _log(f"server: {SERVER_CLIENTS} concurrent clients x 22 queries in "
+         f"seeded shuffled orders, all rows equal to the oracle, in "
+         f"{wall:.2f} s ({SERVER_CLIENTS * 22 / wall:.2f} queries/s; per "
+         f"client {min(walls):.2f}-{max(walls):.2f} s); peak device memory "
+         f"{peak / 2**20:.1f} MiB above the session's tables")
+
+
+def _server_errors(srv, want) -> None:
+    cl = Client(*srv.address)
+    failed = []
+    for bad in ("select nope from lineitem",
+                "select l_quantity / (l_linenumber - l_linenumber) "
+                "from lineitem"):
+        try:
+            cl.sql(bad)
+        except RuntimeError as ex:
+            failed.append(str(ex).split(":")[0])
+        else:
+            raise AssertionError(f"server: {bad!r} did not fail")
+    _check_oracle("server after errors", 6, list(cl.sql(QUERIES[6]).rows),
+                  want)
+    cl.close()
+    _log(f"server: failing statements answered with errors "
+         f"({', '.join(failed)}); the connection then answers Q6 right")
+
+
+def _server_dbapi_cli(srv, want) -> None:
+    from monetdb_tpu_torch import dbapi
+    host, port = srv.address
+    for columnar in (False, True):
+        con = dbapi.connect(host=host, port=port, columnar=columnar)
+        cur = con.cursor()
+        cur.execute(QUERIES[3])
+        _check_oracle(f"dbapi columnar={columnar}", 3, cur.fetchall(), want)
+        con.close()
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "monetdb_tpu_torch", "--host", host,
+         "--port", str(port), "-s", QUERIES[6]], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    (revenue,), = tpch_oracle.decoded(6, want[6])
+    if r.returncode or f" {revenue} " not in r.stdout or \
+            "1 tuple" not in r.stdout:
+        raise AssertionError(f"cli: rc {r.returncode}, stdout "
+                             f"{r.stdout[-400:]!r}, stderr "
+                             f"{r.stderr[-400:]!r}")
+    _log(f"server: dbapi.connect(host=...) Q3 equal to the oracle in JSON "
+         f"and columnar mode; python -m monetdb_tpu_torch --host -s Q6 "
+         f"printed revenue {revenue} in "
+         f"{time.perf_counter() - t0:.2f} s (a process of its own)")
+
+
+def _server_remote(dev, srv, data) -> None:
+    """A second Server on the card serves orders; the first store names it
+    as a remote table and a query ships its predicate."""
+    data = {"orders": data["orders"]}
+    wdb = load_tpch_db(SF, data=data, device=dev)
+    w = Server(wdb).start()
+    try:
+        h, p = w.address
+        s = Session(srv.db)
+        s.sql(f"create remote table r_orders (o_orderkey int, "
+              f"o_orderdate date, o_totalprice decimal(15,2)) on "
+              f"'{h}:{p}/orders'")
+        sql = ("select o_orderkey, o_orderdate, o_totalprice from {} "
+               "where o_orderdate < date '1992-01-08' and "
+               "o_totalprice > 100000 order by o_orderkey")
+        plan = "\n".join(r[0] for r in s.sql(
+            "explain " + sql.format("r_orders")).rows)
+        if "RemoteScan" not in plan or "where" not in plan:
+            raise AssertionError(f"remote: predicate not shipped:\n{plan}")
+        t0 = time.perf_counter()
+        got = s.sql(sql.format("r_orders")).rows
+        t_remote = time.perf_counter() - t0
+        local = s.sql(sql.format("orders")).rows
+        if got != local or not got:
+            raise AssertionError(f"remote: {len(got)} rows != local "
+                                 f"{len(local)}")
+    finally:
+        w.stop()
+        wdb.close()
+    _log(f"server: remote table over a second server on the card "
+         f"(orders, {len(data['orders']['o_orderkey'])} rows there): the "
+         f"predicate ships (RemoteScan ... where), {len(got)} rows equal to "
+         f"the local table's in {t_remote * 1e3:.1f} ms")
+
+
+def _server_tls(dev, db, want) -> None:
+    if shutil.which("openssl") is None:
+        _log("server: TLS not run: no openssl on this machine")
+        return
+    folder = tempfile.mkdtemp(prefix="mtpu_tls_")
+    try:
+        cert, key = (os.path.join(folder, f) for f in ("c.pem", "k.pem"))
+        subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", key, "-out", cert, "-days", "1", "-subj",
+             "/CN=127.0.0.1"], check=True, capture_output=True, timeout=120)
+        tsrv = Server(db, tls=(cert, key)).start()
+        try:
+            h, p = tsrv.address
+            cl = Client(h, p, tls=True, tls_verify=False)
+            _check_oracle("server TLS", 6, list(cl.sql(QUERIES[6]).rows),
+                          want)
+            cl.close()
+            try:
+                Client(h, p).sql("select 1")
+            except Exception:
+                pass
+            else:
+                raise AssertionError("TLS: a plaintext client got an answer")
+        finally:
+            tsrv.stop()
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    _log("server: TLS with a throwaway certificate: Q6 equal to the "
+         "oracle, a plaintext client refused")
+
+
+def _server_auth(srv, db, want) -> None:
+    db.create_user("alice", "secret")
+    db.grant(["select"], "lineitem", "alice")
+    h, p = srv.address
+    cl = Client(h, p, "alice", "secret")
+    _check_oracle("server auth", 6, list(cl.sql(QUERIES[6]).rows), want)
+    cl.close()
+    for user, pw in (("alice", "wrong"), ("bob", "secret")):
+        try:
+            Client(h, p, user, pw)
+        except ConnectionError:
+            continue
+        raise AssertionError(f"auth: {user}/{pw} was let in")
+    _log("server: challenge-response auth: alice with her password gets "
+         "Q6 right; a wrong password and an unknown user are refused")
 
 
 def _tpch_ddl(data) -> list:
@@ -1147,7 +1434,7 @@ def _table_checks(data) -> dict:
     return checks
 
 
-def phase_durable(dev, data) -> None:
+def phase_durable(dev, data, seg_entry: dict) -> None:
     """A store on local disk at SF1: DDL by SQL, COPY BINARY and COPY INTO
     (native CSV parser), checkpoint, TPC-H RF1 / RF2 and an UPDATE as
     committed transactions, one RF1 rolled back, then a close without a
@@ -1158,12 +1445,12 @@ def phase_durable(dev, data) -> None:
         raise AssertionError("the native CSV parser did not build")
     folder = tempfile.mkdtemp(prefix="mtpu_durable_")
     try:
-        _durable(dev, data, folder)
+        _durable(dev, data, folder, seg_entry)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 
 
-def _durable(dev, data, folder: str) -> None:
+def _durable(dev, data, folder: str, seg_entry: dict) -> None:
     path = os.path.join(folder, "db")
     wal = os.path.join(path, "wal.log")
     torch.cuda.empty_cache()
@@ -1266,11 +1553,78 @@ def _durable(dev, data, folder: str) -> None:
             raise AssertionError(f"durable Q{q} after the replay != oracle: "
                                  f"{diff or 'no rows'}")
     db.close()
+    seg = CK.LAUNCHES['seg_sum64']
+    _farm(dev, folder, oracle, len(changed["lineitem"]["l_orderkey"]),
+          seg_entry)
     _log(f"durable: reopen (WAL replay) {t_reopen:.2f} s; every committed "
          f"change read back (count and sums of 8 tables), the rolled-back "
          f"RF1 absent; 22 queries equal to the oracle over the changed "
          f"arrays ({t_oracle:.1f} s there), first runs ms: "
-         f"{', '.join(times)}; seg_sum64 launches {CK.LAUNCHES['seg_sum64']}")
+         f"{', '.join(times)}; seg_sum64 launches {seg}")
+
+
+def _farm(dev, folder: str, oracle: dict, n_lineitem: int,
+          seg_entry: dict) -> None:
+    """The replayed SF1 store as database ``db`` of a Farm on the card:
+    the 22 queries through the farm's proxy, status, stop (checkpoint),
+    snapshot, restore as ``db2`` and a Funnel over both."""
+    farm = Farm(folder, device=dev)
+    try:
+        if farm.databases() != ["db"]:
+            raise AssertionError(f"farm: databases {farm.databases()}")
+        host, port = farm.proxy_listen()
+        t0 = time.perf_counter()
+        cl = Client(host, port, database="db")   # starts db on demand
+        _zero_launches()                # the farm path starts here
+        times = []
+        for q in SLICE_QUERIES:
+            t1 = time.perf_counter()
+            _check_oracle("farm", q, list(cl.sql(QUERIES[q]).rows), oracle)
+            times.append(f"Q{q} {(time.perf_counter() - t1) * 1e3:.1f}")
+        t_queries = time.perf_counter() - t0
+        cl.close()
+        launches = seg_entry["launches_farm"] = CK.LAUNCHES["seg_sum64"]
+        if launches <= 0:
+            raise AssertionError("the farm path launched no seg_sum64")
+        st = {e["name"]: e for e in farm.status()}
+        if st["db"]["state"] != "running" or \
+                farm.db("db").device != torch.device(dev):
+            raise AssertionError(f"farm: status {st}")
+        wal = os.path.join(folder, "db", "wal.log")
+        wal_before = os.path.getsize(wal)
+        t0 = time.perf_counter()
+        farm.stop("db")
+        t_stop = time.perf_counter() - t0
+        if os.path.getsize(wal) >= wal_before or \
+                farm.status()[0]["state"] != "stopped":
+            raise AssertionError(f"farm: stop did not checkpoint (WAL "
+                                 f"{wal_before} -> {os.path.getsize(wal)})")
+        _log(f"farm: the replayed store as database db on {dev}: 22 "
+             f"queries through the proxy equal to the oracle over the "
+             f"changed arrays in {t_queries:.2f} s with the on-demand start "
+             f"(WAL replay) and first uploads (ms: {', '.join(times)}); "
+             f"seg_sum64 launches {launches}; status running; stop "
+             f"checkpointed in {t_stop:.2f} s (WAL {wal_before} -> "
+             f"{os.path.getsize(wal)} bytes)")
+        tar = os.path.join(folder, "db.tar")
+        t0 = time.perf_counter()
+        farm.snapshot("db", tar)
+        t_snap = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        farm.restore("db2", tar)
+        t_restore = time.perf_counter() - t0
+        os.remove(tar)
+        f = farm.funnel(["db", "db2"])
+        rows = f.sql("select count(*) from lineitem").rows
+        f.close()
+        if rows != [(n_lineitem,), (n_lineitem,)]:
+            raise AssertionError(f"funnel: {rows}, each should be "
+                                 f"{n_lineitem}")
+        _log(f"farm: snapshot of db {t_snap:.2f} s, restore as db2 "
+             f"{t_restore:.2f} s; a Funnel over both counts lineitem twice "
+             f"({rows[0][0]} + {rows[1][0]})")
+    finally:
+        farm.stop_all()
 
 
 def _ledger() -> dict:
@@ -1323,6 +1677,226 @@ def phase_sqllogic(dev) -> None:
          f"({len(led) - n_fail} pass, {n_fail} known-fail) as the ledger "
          f"says; {records} records in {secs:.1f} s on {dev}")
 
+
+
+GEOM_POINTS = 1_000_000
+GEOM_POLYGONS = 1000
+
+
+def _geom_ring(cx, cy, r, n, phase=0.0) -> np.ndarray:
+    a = np.linspace(0, 2 * math.pi, n, endpoint=False) + phase
+    rr = r * (1 + 0.3 * np.sin(5 * a))
+    ring = np.stack([cx + rr * np.cos(a), cy + rr * np.sin(a)], axis=1)
+    ring = np.round(ring, 6)
+    return np.vstack([ring, ring[:1]])
+
+
+def _wkt_ring(ring: np.ndarray) -> str:
+    return "(" + ", ".join(f"{x:.6f} {y:.6f}" for x, y in ring) + ")"
+
+
+def _np_edges(rings, closed=True) -> np.ndarray:
+    """(E, 4) edges [x1 y1 x2 y2] of rings whose last vertex repeats the
+    first (closed) or of a line's consecutive vertices."""
+    segs = []
+    for r in rings:
+        if closed:
+            segs.append(np.concatenate([r, np.roll(r, -1, axis=0)], axis=1))
+        else:
+            segs.append(np.concatenate([r[:-1], r[1:]], axis=1))
+    return np.concatenate(segs)
+
+
+def _np_inside(x, y, edges) -> np.ndarray:
+    """Even-odd ray cast, in blocks of points."""
+    x1, y1, x2, y2 = edges.T
+    out = np.empty(len(x), bool)
+    for lo in range(0, len(x), 1 << 16):
+        px, py = x[lo:lo + (1 << 16), None], y[lo:lo + (1 << 16), None]
+        straddle = (y1 > py) != (y2 > py)
+        dy = np.where(y2 == y1, 1.0, y2 - y1)
+        xs = x1 + (py - y1) * (x2 - x1) / dy
+        out[lo:lo + (1 << 16)] = (straddle & (px < xs)).sum(1) % 2 == 1
+    return out
+
+
+def _np_seg_dist(x, y, edges) -> np.ndarray:
+    x1, y1, x2, y2 = edges.T
+    dx, dy = x2 - x1, y2 - y1
+    ln = np.where(dx * dx + dy * dy == 0, 1.0, dx * dx + dy * dy)
+    out = np.empty(len(x))
+    for lo in range(0, len(x), 1 << 15):
+        px, py = x[lo:lo + (1 << 15), None], y[lo:lo + (1 << 15), None]
+        t = np.clip(((px - x1) * dx + (py - y1) * dy) / ln, 0.0, 1.0)
+        out[lo:lo + (1 << 15)] = np.hypot(px - (x1 + t * dx),
+                                          py - (y1 + t * dy)).min(1)
+    return out
+
+
+def _haversine(x, y, bx, by) -> np.ndarray:
+    rad = math.pi / 180.0
+    h = (np.sin((by - y) * rad / 2) ** 2 + np.cos(y * rad)
+         * math.cos(by * rad) * np.sin((bx - x) * rad / 2) ** 2)
+    return 2 * GEOD_RADIUS * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))
+
+
+def phase_geom(dev) -> None:
+    """GEOM_POINTS seeded points as WKT on the card (COPY from a CSV), and
+    point-in-polygon, distances, geographic DWithin and coordinate sums
+    against one 64-vertex polygon with a hole, a multipolygon, a
+    linestring and a point; st_area over GEOM_POLYGONS polygons.  Expected
+    values from numpy (even-odd ray cast, segment distance, haversine,
+    shoelace): counts exactly, floats to rel 1e-9."""
+    rng = np.random.default_rng(77)
+    x = np.round(rng.uniform(-170, 170, GEOM_POINTS), 6)
+    y = np.round(rng.uniform(-80, 80, GEOM_POINTS), 6)
+    outer, hole = _geom_ring(10, 5, 50, 64), _geom_ring(15, 10, 15, 12, 0.2)
+    parts = [_geom_ring(-100, 30, 25, 9), _geom_ring(110, -40, 30, 11, 0.5)]
+    line = np.array([[-150, -60], [-20, 10], [30, -5], [160, 70]], float)
+    pt = (12.5, -7.25)
+    consts = {
+        "polygon": (f"POLYGON ({_wkt_ring(outer)}, {_wkt_ring(hole)})",
+                    _np_edges([outer, hole])),
+        "multipolygon": ("MULTIPOLYGON (" + ", ".join(
+            f"({_wkt_ring(r)})" for r in parts) + ")", _np_edges(parts)),
+        "linestring": ("LINESTRING (" + ", ".join(
+            f"{a:g} {b:g}" for a, b in line) + ")",
+            _np_edges([line], closed=False)),
+        "point": (f"POINT ({pt[0]} {pt[1]})", None)}
+    folder = tempfile.mkdtemp(prefix="mtpu_geom_")
+    try:
+        s = Session(Database(device=dev))
+        s.sql("create table pts (id int, g varchar(48))")
+        path = os.path.join(folder, "pts.csv")
+        with open(path, "w") as f:
+            f.writelines(f"{i}|POINT ({a:.6f} {b:.6f})\n"
+                         for i, (a, b) in enumerate(zip(x, y)))
+        t0 = time.perf_counter()
+        if s.sql(f"copy into pts from '{path}'") != GEOM_POINTS:
+            raise AssertionError("geom: COPY count")
+        _log(f"geom: {GEOM_POINTS} points as WKT loaded by COPY in "
+             f"{time.perf_counter() - t0:.2f} s")
+        polys = [_geom_ring(*rng.uniform(-150, 150, 2), rng.uniform(1, 9),
+                            int(rng.integers(4, 40)))
+                 for _ in range(GEOM_POLYGONS)]
+        s.sql("create table shapes (id int, g varchar(2000))")
+        s.sql("insert into shapes values " + ", ".join(
+            f"({i}, 'POLYGON ({_wkt_ring(r)})')" for i, r in
+            enumerate(polys)))
+        checks = []
+        for name, (wkt, edges) in consts.items():
+            if name in ("polygon", "multipolygon"):
+                inside = _np_inside(x, y, edges)
+                checks.append((f"count st_contains({name})",
+                               f"select count(*) from pts where "
+                               f"st_contains('{wkt}', g)",
+                               int(inside.sum()), True))
+                dist = np.where(inside, 0.0, _np_seg_dist(x, y, edges))
+            elif edges is not None:
+                dist = _np_seg_dist(x, y, edges)
+            else:
+                dist = np.hypot(x - pt[0], y - pt[1])
+            checks.append((f"sum st_distance({name})",
+                           f"select sum(st_distance(g, '{wkt}')) from pts",
+                           float(dist.sum()), False))
+        hv = _haversine(x, y, *pt)
+        checks.append(("count st_dwithin geographic 2,000 km",
+                       f"select count(*) from pts where "
+                       f"st_dwithingeographic(g, '{consts['point'][0]}', "
+                       f"2000000.0)", int((hv <= 2e6).sum()), True))
+        checks.append(("sum st_distance_geographic",
+                       f"select sum(st_distance_geographic(g, "
+                       f"'{consts['point'][0]}')) from pts",
+                       float(hv.sum()), False))
+        checks.append(("sum st_x", "select sum(st_x(g)) from pts",
+                       float(x.sum()), False))
+        checks.append(("sum st_y", "select sum(st_y(g)) from pts",
+                       float(y.sum()), False))
+        area = sum(0.5 * abs(np.sum(r[:, 0] * np.roll(r[:, 1], -1)
+                                    - np.roll(r[:, 0], -1) * r[:, 1]))
+                   for r in polys)
+        checks.append((f"sum st_area over {GEOM_POLYGONS} polygons",
+                       "select sum(st_area(g)) from shapes", float(area),
+                       False))
+        for label, sql, want, exact in checks:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            (got,), = s.sql(sql).rows
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            ok = got == want if exact else math.isclose(got, want,
+                                                        rel_tol=1e-9)
+            if not ok:
+                raise AssertionError(f"geom {label}: {got} != numpy {want}")
+            _log(f"geom: {label} = {got} equal to numpy; {ms:.1f} ms, peak "
+                 f"device memory {peak / 2**20:.1f} MiB above the table")
+        s.db.close()
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+#: phase_external: 2^27 int64 values (1 GiB on the host) in tiles of
+#: 2^24 rows (8 tiles), and 2^26 values that are 90% one value
+EXT_ROWS = 1 << 27
+EXT_TIES_ROWS = 1 << 26
+EXT_TILE = 1 << 24
+#: allowed peak device memory, in tiles' bytes
+EXT_PEAK_TILES = 8
+
+
+def phase_external(dev) -> None:
+    """external_sort (ascending, descending, heavy ties) and the streaming
+    cumulative and window sums over host arrays through tiles on the card:
+    outputs equal numpy exactly, peak device memory within EXT_PEAK_TILES
+    tiles.  The reference's 1B-row envelope (tests/test_external.py, opt-in)
+    is cut to 2^27 rows to fit the script's time."""
+    rng = np.random.default_rng(8)
+    arr = rng.integers(-10**15, 10**15, EXT_ROWS).astype(np.int64)
+    ties = np.where(rng.random(EXT_TIES_ROWS) < 0.9, 7,
+                    rng.integers(-10**6, 10**6, EXT_TIES_ROWS)
+                    ).astype(np.int64)
+    t0 = time.perf_counter()
+    want = np.sort(arr)
+    want_ties = np.sort(ties)
+    csum = np.cumsum(arr)
+    c0 = np.concatenate([[0], csum])
+    wsum = c0[1:] - c0[np.maximum(np.arange(EXT_ROWS) - 999, 0)]
+    del c0
+    _log(f"external: numpy oracles {time.perf_counter() - t0:.2f} s")
+    tile_bytes = EXT_TILE * 8
+    runs = [
+        ("external_sort ascending", arr, want, lambda a: X.external_sort(
+            a, chunk_rows=EXT_TILE, device=dev)),
+        ("external_sort descending", arr, want[::-1],
+         lambda a: X.external_sort(a, chunk_rows=EXT_TILE, descending=True,
+                                   device=dev)),
+        ("external_sort heavy ties", ties, want_ties,
+         lambda a: X.external_sort(a, chunk_rows=EXT_TILE, device=dev)),
+        ("streaming_cumsum", arr, csum, lambda a: X.streaming_cumsum(
+            a, chunk_rows=EXT_TILE, device=dev)),
+        ("streaming_window_sum(w=1000)", arr, wsum,
+         lambda a: X.streaming_window_sum(a, 1000, chunk_rows=EXT_TILE,
+                                          device=dev))]
+    for label, src, expect, fn in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        got = fn(src)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if got.dtype != expect.dtype or not np.array_equal(got, expect):
+            raise AssertionError(f"external: {label} != numpy")
+        if peak > EXT_PEAK_TILES * tile_bytes:
+            raise AssertionError(f"external: {label} peak device memory "
+                                 f"{peak} > {EXT_PEAK_TILES} tiles")
+        _log(f"external: {label} over {len(src)} int64 rows in tiles of "
+             f"{EXT_TILE} ({-(-len(src) // EXT_TILE)} tiles) equal to numpy; "
+             f"{secs:.2f} s, {len(src) / secs / 1e6:.1f} Mrows/s; peak "
+             f"device memory {peak / 2**20:.1f} MiB = "
+             f"{peak / tile_bytes:.2f} tiles ({tile_bytes >> 20} MiB each)")
 
 
 def phase_profile(dev, eng: Engine) -> None:
@@ -1392,31 +1966,51 @@ def _profile_query(eng, q, executor: bool, profile, activities,
          f"top: {top}")
 
 
+def _timed(name: str, fn, *args):
+    """Run one phase and print its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main(argv) -> int:
     if [a for a in argv if a != "--profile"]:
         raise SystemExit(__doc__)
+    t_start = time.perf_counter()
     device = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
-    seg = phase_kernel_seg_sum64(dev)
-    q1, gsl = phase_kernel_fused(dev)
+    _timed("build", phase_build)
+    seg = _timed("kernel seg_sum64", phase_kernel_seg_sum64, dev)
+    q1, gsl = _timed("kernel fused", phase_kernel_fused, dev)
     torch.cuda.empty_cache()
-    cat, resident, want, data = phase_load(dev)
-    phase_fused(cat, want[1], q1, gsl)
+    cat, resident, want, data = _timed("load", phase_load, dev)
+    _timed("fused", phase_fused, cat, want[1], q1, gsl)
     frag = {}
-    eng = phase_slice(dev, cat, resident, want, seg, frag)
-    phase_executor(dev, eng, resident, want)
-    phase_window(dev, eng, resident, data)
-    phase_window_primitives(dev)
+    eng = _timed("slice", phase_slice, dev, cat, resident, want, seg, frag)
+    _timed("executor", phase_executor, dev, eng, resident, want)
+    _timed("window", phase_window, dev, eng, resident, data)
+    _timed("window primitives", phase_window_primitives, dev)
     if "--profile" in argv:
-        phase_profile(dev, eng)
+        _timed("profile", phase_profile, dev, eng)
     del eng, cat
     torch.cuda.empty_cache()
-    phase_tpcds(dev, seg)
-    phase_session(dev, data, want, frag, seg)
-    phase_durable(dev, data)
-    phase_sqllogic(dev)
+    _timed("tpcds", phase_tpcds, dev, seg)
+    db, sess_launches, sess_medians = _timed(
+        "session", phase_session, dev, data, want, frag, seg)
+    _timed("server", phase_server, dev, db, data, want, sess_launches,
+           sess_medians, seg)
+    db.close()
+    del db
+    gc.collect()
+    torch.cuda.empty_cache()
+    _timed("durable + farm", phase_durable, dev, data, seg)
+    _timed("sqllogic", phase_sqllogic, dev)
+    _timed("geom", phase_geom, dev)
+    _timed("external", phase_external, dev)
+    _log(f"chip_smoke: all phases passed in "
+         f"{time.perf_counter() - t_start:.1f} s")
     _log(json.dumps({"kernels": [seg, q1, gsl]}))
     _log(json.dumps({"ok": True, "device": device}))
     return 0

@@ -60,10 +60,12 @@ class StrDict:
     gdk/gdk_string.c + sql/backends/monet5/dict.c).
     """
 
-    __slots__ = ("values",)
+    # _geom_cache: lazily-parsed geometry per distinct value (ops/geom.py)
+    __slots__ = ("values", "_geom_cache")
 
     def __init__(self, values: np.ndarray):
         self.values = np.asarray(values)
+        self._geom_cache = None
 
     def __len__(self):
         return len(self.values)

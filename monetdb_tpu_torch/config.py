@@ -17,10 +17,28 @@ _defaults: Dict[str, Any] = {
     # lower whole plans into one fragment when supported (exec/fragment.py);
     # a plan the fragment rejects runs op-at-a-time (exec/executor.py)
     "fragment_exec": True,
+    # bucketed capacity growth factor for device arrays (column.capacity_for)
+    "growth": 2.0,
     # smallest bucketed capacity of a device column (column.capacity_for)
     "min_capacity": 1024,
     # number of rows below which group-by takes the sort path unconditionally
     "small_sort_threshold": 1 << 14,
+    # default bucket count for radix/hash partitioning
+    "radix_bits": 8,
+    # --- SPMD plan distribution: keys of the reference's config, read by
+    # nothing yet (the port runs every plan on one device) ----------------
+    # when >1 device is visible, sessions construct a row mesh and run
+    # eligible plans SPMD by default; set 0 to force single-device execution
+    "spmd_auto_mesh": True,
+    # tables at or above this many rows (capacity) are row-sharded over
+    # the mesh; smaller ones stay replicated
+    "spmd_min_shard_rows": 1 << 16,
+    # sharded join build sides whose global capacity is at most this are
+    # broadcast to every device; larger builds hash-repartition both sides
+    "spmd_broadcast_rows": 1 << 18,
+    # sharded group-by/distinct inputs below this many rows per shard
+    # gather to one replica instead of repartitioning by key hash
+    "spmd_shuffle_min_rows": 1 << 15,
     # observability
     "trace": False,
     # GDKdebug-style runtime property assertions (BATassertProps,

@@ -1,10 +1,13 @@
 """PEP 249 (DB-API 2.0) interface — the pymonetdb/ODBC-driver analog
 (clients/odbc, and the Python client the reference ecosystem ships).
 
-Connections run in process: connect(database="/path/or/None") is the
-monetdbe analog (tools/monetdbe/monetdbe.h in-process API) over a store on
-``device``.  The network mode (connect(host=...), the mapilib analog) needs
-the server client (server.py), which is not ported yet: it raises.
+Two connection modes:
+  * embedded:  connect(database="/path/or/None", device=...) — monetdbe
+               analog (tools/monetdbe/monetdbe.h in-process API) over a
+               store on ``device``
+  * network:   connect(host=..., port=..., user=..., password=...)
+               — mapilib analog over the block-stream protocol (server.py);
+               the server's store names the device
 """
 
 from __future__ import annotations
@@ -30,22 +33,28 @@ class DatabaseError(Error):
 
 def connect(database: Optional[str] = None, host: Optional[str] = None,
             port: Optional[int] = None, user: Optional[str] = None,
-            password: Optional[str] = None, *,
-            device="cuda") -> "Connection":
+            password: Optional[str] = None,
+            columnar: bool = False, *, device="cuda") -> "Connection":
     """An in-process connection to the store at ``database`` (None = in
-    memory) on ``device``."""
+    memory) on ``device``, or with ``host`` a network connection.
+    columnar=True: network result sets use the binary columnar wire
+    mode (sql_result.c:1216 analog) - no per-value JSON; Cursor.fetchnumpy
+    returns the raw buffers."""
     if host is not None:
-        raise InterfaceError("connect(host=...): the network mode needs the "
-                             "server client (server.py), which is not "
-                             "ported yet")
+        from .server import Client
+        return Connection(remote=Client(host, int(port), user, password),
+                          columnar=columnar)
     from .session import Session
     from .storage import Database
-    return Connection(Session(Database(database, device=device)))
+    return Connection(session=Session(Database(database, device=device)),
+                      columnar=columnar)
 
 
 class Connection:
-    def __init__(self, session):
+    def __init__(self, session=None, remote=None, columnar: bool = False):
         self._session = session
+        self._remote = remote
+        self._columnar = columnar
         self._closed = False
 
     def cursor(self) -> "Cursor":
@@ -55,6 +64,8 @@ class Connection:
 
     def _run(self, sql: str):
         try:
+            if self._remote is not None:
+                return self._remote.sql(sql, columnar=self._columnar)
             return self._session.sql(sql)
         except Error:
             raise
@@ -63,15 +74,18 @@ class Connection:
 
     def commit(self) -> None:
         # autocommit outside explicit START TRANSACTION (MonetDB default)
-        if self._session.txn is not None:
+        if self._session is not None and self._session.txn is not None:
             self._session.sql("commit")
 
     def rollback(self) -> None:
-        if self._session.txn is not None:
+        if self._session is not None and self._session.txn is not None:
             self._session.sql("rollback")
 
     def close(self) -> None:
-        self._session.db.close()
+        if self._remote is not None:
+            self._remote.close()
+        elif self._session is not None:
+            self._session.db.close()
         self._closed = True
 
     def __enter__(self):
@@ -133,17 +147,22 @@ class Cursor:
 
     def fetchnumpy(self):
         """{name: numpy array} of the current result's physical columns
-        (fragment results): the fast bulk fetch the reference exposes
-        through the monetdbe_result binding."""
+        (columnar wire mode or embedded fragment results): the fast bulk
+        fetch the reference exposes through the columnar protocol +
+        monetdbe_result binding."""
         import numpy as np
         res = self._result
         if res is None:
             raise InterfaceError("no result set")
+        if hasattr(res, "numpy"):
+            return {n: res.numpy(n) for n in res.names}
         if getattr(res, "raw", None):
             return {n: np.asarray(a)
                     for n, (a, _t, _s) in zip(res.names, res.raw)}
-        raise InterfaceError("result has no columnar form (it ran "
-                             "through the op-at-a-time executor)")
+        raise InterfaceError(
+            "result has no columnar form (use connect(columnar=True) "
+            "for network connections; an embedded result that ran through "
+            "the op-at-a-time executor has none)")
 
     def executemany(self, sql: str, seq) -> "Cursor":
         for params in seq:

@@ -431,12 +431,48 @@ class Executor:
         return self.exec_rel(r.child).rename(r.alias)
 
     def _exec_remotescan(self, r: L.RemoteScan) -> Frame:
-        raise ExecError("RemoteScan: needs the server client (server.py), "
-                        "which is not ported yet")
+        """Ship a SQL subquery to the owning server and re-encode the rows
+        as device columns (remote.c RMTexec analog, but with predicate
+        pushdown so only surviving rows cross the wire)."""
+        from ..server import Client
+        from ..sql.distribute import to_sql
+        from ..storage.columns import column_from_pyvalues
+        rdef = self.catalog.remotes[r.table]
+        wanted = self.refs.get(r.alias) or self.refs.get(r.table) or set()
+        names = [n for n, _t in rdef.schema if n in wanted] \
+            or [rdef.schema[0][0]]
+        sql = f"select {', '.join(names)} from {r.rtable}"
+        if r.preds:
+            sql += " where " + " and ".join(to_sql(p) for p in r.preds)
+        host, port = r.addr.rsplit(":", 1)
+        cl = Client(host, int(port), rdef.user, rdef.password)
+        try:
+            res = cl.sql(sql)
+        finally:
+            cl.close()
+        types = dict(rdef.schema)
+        cols: Dict[Tuple[str, str], Column] = {}
+        for i, n in enumerate(names):
+            cols[(r.alias, n)] = column_from_pyvalues(
+                [row[i] for row in res.rows], types[n], device=self.device)
+        return Frame(cols, len(res.rows))
 
     def _exec_remotequery(self, r: L.RemoteQuery) -> Frame:
-        raise ExecError("RemoteQuery: needs the server client (server.py), "
-                        "which is not ported yet")
+        """Ship pre-built SQL (partial aggregates) to a remote server
+        (two-phase aggregation combine path)."""
+        from ..server import Client
+        from ..storage.columns import column_from_pyvalues
+        host, port = r.addr.rsplit(":", 1)
+        cl = Client(host, int(port), r.user, r.password)
+        try:
+            res = cl.sql(r.sql)
+        finally:
+            cl.close()
+        cols: Dict[Tuple[str, str], Column] = {}
+        for i, (n, t) in enumerate(r.schema):
+            cols[(r.key_table, n)] = column_from_pyvalues(
+                [row[i] for row in res.rows], t, device=self.device)
+        return Frame(cols, len(res.rows))
 
     def _exec_filter(self, r: L.Filter) -> Frame:
         fr = self.exec_rel(r.child)
@@ -1753,8 +1789,103 @@ class Executor:
         return self._from_py(vals, e.typ)
 
     def _eval_geom(self, e: Func, fr: Frame):
-        raise ExecError(f"geometry function {e.name}: needs ops/geom.py, "
-                        "which is not ported yet")
+        """Geometry functions (geom/monetdb5/geom.c + geomBulk.c bulk
+        variants, SQL surface geom/sql/40_geom.sql) — see ops/geom.py for
+        the device lowering."""
+        from ..ops import geom as GM
+        from ..obs import set_algorithm
+        name = e.name
+        args = [self.eval(a, fr) for a in e.args]
+        if name in ("st_geomfromtext", "st_pointfromtext",
+                    "st_polygonfromtext", "st_geometryfromtext",
+                    "st_mpolyfromtext", "st_linefromtext"):
+            # validate + normalize; geometries stay WKT-encoded
+            v = args[0]
+            if isinstance(v, Scalar):
+                return Scalar(GM.format_wkt(GM.parse_wkt(str(v.value))),
+                              v.typ)
+            return GM.st_astext(v)
+        if name in ("st_makepoint", "st_point"):
+            if all(isinstance(a, Scalar) for a in args):
+                return Scalar(GM.geom_scalar("st_makepoint",
+                                             args[0].value, args[1].value),
+                              e.typ)
+            cols = [a if isinstance(a, Column) else self._broadcast(a, fr)
+                    for a in args[:2]]
+            return GM.make_point_col(*cols)
+        if all(isinstance(a, Scalar) for a in args):
+            return Scalar(GM.geom_scalar(name, *[a.value for a in args]),
+                          e.typ)
+        set_algorithm(f"geom:{name}")
+        a0 = args[0]
+        if name in ("st_x", "st_y", "st_area", "st_length", "st_perimeter",
+                    "st_numpoints", "st_centroid", "st_envelope",
+                    "st_astext"):
+            fn = {"st_x": GM.st_x, "st_y": GM.st_y, "st_area": GM.st_area,
+                  "st_length": GM.st_length, "st_perimeter": GM.st_length,
+                  "st_numpoints": GM.st_numpoints,
+                  "st_centroid": GM.st_centroid,
+                  "st_envelope": GM.st_envelope,
+                  "st_astext": GM.st_astext}[name]
+            return fn(a0)
+        if name in ("st_distance", "st_distance_geographic"):
+            b = args[1] if isinstance(args[1], Column) else \
+                str(args[1].value)
+            if not isinstance(a0, Column):
+                a0, b = args[1], str(args[0].value)
+            if name == "st_distance" and not isinstance(b, Column) \
+                    and not GM._col_is_points(a0):
+                return GM.column_geom_fn("st_distance", a0, b)
+            fn = GM.st_distance if name == "st_distance" else \
+                GM.st_distance_geographic
+            return fn(a0, b)
+        if name in ("st_dwithin", "st_dwithingeographic"):
+            b = args[1] if isinstance(args[1], Column) else \
+                str(args[1].value)
+            if not isinstance(a0, Column):
+                a0, b = args[1], str(args[0].value)
+            d = _to_f64_scalar(args[2])
+            return GM.st_dwithin(a0, b, d,
+                                 geographic=name.endswith("geographic"))
+        # two-geometry functions: one side a column, the other constant.
+        # Point columns take the fused device kernels (bbox prefilter +
+        # ray cast); general geometry columns evaluate per distinct
+        # dictionary value (geomBulk.c role, ops/geom.py engine).
+        two = name in GM._PRED2 or name in GM._GEOM2 or \
+            name in ("st_relate", "st_distance2")
+        if two and len(args) >= 2:
+            if isinstance(a0, Column) and isinstance(args[1], Scalar):
+                col, const, swapped = a0, str(args[1].value), False
+            elif isinstance(args[1], Column) and isinstance(a0, Scalar):
+                col, const, swapped = args[1], str(args[0].value), True
+            else:
+                raise ExecError(f"{name} needs one column side")
+            nm = name
+            if swapped:
+                nm = {"st_contains": "st_within",
+                      "st_within": "st_contains",
+                      "st_covers": "st_coveredby",
+                      "st_coveredby": "st_covers"}.get(name, name)
+                if name in ("st_difference", "st_relate"):
+                    raise ExecError(f"{name}: column must be the first "
+                                    "argument")
+            if GM._col_is_points(col):
+                g = GM.parse_wkt(const)
+                if nm == "st_intersects":
+                    return GM.st_intersects(col, g)
+                if nm in ("st_within", "st_coveredby") and \
+                        g.kind in ("polygon", "multipolygon"):
+                    return GM.st_contains(g, col)
+            r = GM.column_geom_fn(nm, col, const)
+            if r is not None:
+                return r
+        # single-geometry column functions (generic registry dispatch)
+        if isinstance(a0, Column):
+            rest = [a.value for a in args[1:] if isinstance(a, Scalar)]
+            r = GM.column_geom_fn(name, a0, *rest)
+            if r is not None:
+                return r
+        raise ExecError(f"geometry function {name} unsupported")
 
     def _eval_udf(self, u, e: Func, fr: Frame):
         """Vectorized Python UDF call (pyapi3 analog): columns → host

@@ -984,7 +984,8 @@ class Lowering:
             raise Unsupported(f"{e.kind} subquery in fragment expression")
         _tag, rel, scols = e.select
         try:
-            fr = CompiledFragment(self.catalog, rel, [scols[0].name]).run()
+            fr = CompiledFragment(self.catalog, rel,
+                                  [scols[0].name]).run(stat="subquery_runs")
         except Unsupported:
             return self._subquery_executor(rel, scols[0].name)
         typ = fr.pts[0].typ
@@ -2862,8 +2863,12 @@ def _memo_disk_put(plan_key, expand: Dict[int, Optional[int]]) -> None:
 _LOCK = threading.Lock()
 
 #: observability: runs and count-then-retry re-lowerings; tests use this to
-#: prove the retry path executed
-STATS = {"runs": 0, "uniq_retries": 0, "cap_retries": 0, "fallbacks": 0}
+#: prove the retry path executed.  ``runs`` counts the fragments of queries
+#: (as in the reference); the fragments that plan-time scalar subqueries run
+#: on (the reference runs those through its executor) count apart, under
+#: ``subquery_runs``
+STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
+         "fallbacks": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:
@@ -2922,22 +2927,32 @@ class CompiledFragment:
         self.out_keys = tuple(out_keys)
         self.pts = pts
         self.cap = cap
+        # the reference's event says "compile": "miss" when XLA compiled
+        # the IR; here, when the IR is new since the last run
+        self.fresh_ir = True
 
     def _memoize(self) -> None:
         with _LOCK:
             _JOIN_MEMO[self.plan_key] = dict(self.expand)
         _memo_disk_put(self.plan_key, dict(self.expand))
 
-    def run(self, events: Optional[list] = None) -> FragmentResult:
+    def run(self, events: Optional[list] = None,
+            stat: str = "runs") -> FragmentResult:
         """Execute on the device of the inputs.  One host read of the
         error code, count and totals per attempt, plus one re-lowered
         retry per newly discovered compaction / group-bucket overflow
         (memoized across runs); results larger than _SINGLE_PHASE_CAP are
-        compacted to a tight capacity after the count is known."""
-        stats_inc("runs")
+        compacted to a tight capacity after the count is known.  ``stat``
+        is the STATS key the run counts under."""
+        from ..obs import set_algorithm
+        set_algorithm("fragment:jit")
+        stats_inc(stat)
         t0 = time.perf_counter()
         rpcs = 0
+        lowered = False
         for _attempt in range(8):
+            lowered |= self.fresh_ir
+            self.fresh_ir = False
             single = self.cap <= _SINGLE_PHASE_CAP
             if single:
                 err, tots, count, arrays = _run_single(
@@ -2992,9 +3007,11 @@ class CompiledFragment:
                 self._memoize()
             if events is not None:
                 events.append({
-                    "op": "fragment.run", "algorithm": "fragment:torch",
+                    "op": "fragment.run", "algorithm": "fragment:jit",
                     "device": str(self.inputs[0].device),
                     "rows": n, "rpcs": rpcs,
+                    "compile": "miss" if lowered else "hit",
+                    "expanding_joins": len(self.expand_used),
                     "usec": int((time.perf_counter() - t0) * 1e6)})
             return result
         raise Unsupported("expanding-join retry limit exceeded")

@@ -227,9 +227,11 @@ def seg_sum64(sid: torch.Tensor, vals: torch.Tensor, *, domain: int):
     n = sid.numel()
     blocks = max(1, min(-(-n // _THREADS), _sms(dev) * _BLOCKS_PER_SM))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched("seg_sum64", fn(
-        sid.data_ptr(), sid.element_size(), v.data_ptr(), n, domain,
-        out[0].data_ptr(), out[1].data_ptr(), blocks, _THREADS, stream))
+    # a server thread's current device need not be the tensors'
+    with torch.cuda.device(dev):
+        _launched("seg_sum64", fn(
+            sid.data_ptr(), sid.element_size(), v.data_ptr(), n, domain,
+            out[0].data_ptr(), out[1].data_ptr(), blocks, _THREADS, stream))
     return out[0], out[1]
 
 
@@ -289,9 +291,10 @@ def q1_grouped_sums(code, shipdate, qty, extp, disc, tax, cutoff, *,
                         _SHMEM_PER_SM // (domain * 6 * 8 * 32 + 1024)))
     blocks = max(1, min(-(-n // (4 * _THREADS)), _sms(dev) * per_sm))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched("q1_grouped_sums", fn(
-        *(c.data_ptr() for c in cols), cutoff, n, domain, out.data_ptr(),
-        blocks, _THREADS, stream))
+    with torch.cuda.device(dev):
+        _launched("q1_grouped_sums", fn(
+            *(c.data_ptr() for c in cols), cutoff, n, domain, out.data_ptr(),
+            blocks, _THREADS, stream))
     return tuple(out[k] for k in range(6))
 
 
@@ -332,7 +335,8 @@ def grouped_sum_limbs(code, values, mask, *, domain: int):
     blocks = max(1, min(-(-n // (4 * _THREADS)),
                         _sms(dev) * _BLOCKS_PER_SM))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched("grouped_sum_limbs", fn(
-        code.data_ptr(), values.data_ptr(), mask.data_ptr(), n, domain,
-        out[0].data_ptr(), out[1].data_ptr(), blocks, _THREADS, stream))
+    with torch.cuda.device(dev):
+        _launched("grouped_sum_limbs", fn(
+            code.data_ptr(), values.data_ptr(), mask.data_ptr(), n, domain,
+            out[0].data_ptr(), out[1].data_ptr(), blocks, _THREADS, stream))
     return out[0], out[1]

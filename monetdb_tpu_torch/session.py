@@ -962,9 +962,19 @@ class Session:
                        for m, rs in by_member.items())
         rdef = self.db.remotes.get(n)
         if rdef is not None:
-            raise BindError(f"INSERT INTO remote table {n}: needs the "
-                            "server client (server.py), which is not "
-                            "ported yet")
+            from .server import Client
+            from .sql.distribute import _sql_value
+            collist = f" ({', '.join(cols)})" if cols else ""
+            vals = ", ".join(
+                "(" + ", ".join(_sql_value(v) for v in r) + ")"
+                for r in rows)
+            host, port = rdef.addr.rsplit(":", 1)
+            cl = Client(host, int(port), rdef.user, rdef.password)
+            try:
+                return cl.sql(
+                    f"insert into {rdef.rtable}{collist} values {vals}")
+            finally:
+                cl.close()
         td = self._td(n)
         if not rows:
             return 0            # INSERT ... SELECT over an empty result

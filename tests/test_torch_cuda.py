@@ -1023,3 +1023,99 @@ def test_sqllogic_files_on_gpu(cuda_device):
     assert len(files) == 6
     for f in files:
         assert SqlLogicRunner(Session(Database())).run_file(f) > 0
+
+
+@pytest.mark.cuda
+def test_server_on_gpu_matches_cpu(cuda_device):
+    """A Server over a store on the card answers in JSON and columnar mode
+    with the rows of the same statements over a store on the CPU; a failing
+    statement leaves the connection (and the card) answering."""
+    from monetdb_tpu_torch.server import Client, Server
+    from monetdb_tpu_torch.storage import Database
+    stmts = ["create table t (a int, b varchar(4), c decimal(8,2))",
+             "insert into t values (1, 'x', 1.25), (2, 'y', null), "
+             "(3, 'x', 4.5)"]
+    q = "select b, count(*), sum(c) from t group by b order by b"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        srv = Server(Database(device=dev)).start()
+        try:
+            c = Client(*srv.address)
+            for st in stmts:
+                c.sql(st)
+            with pytest.raises(RuntimeError):
+                c.sql("select nope from t")
+            out[dev] = (c.sql(q).rows, c.sql(q, columnar=True).rows)
+            c.close()
+        finally:
+            srv.stop()
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] == out["cuda"][1]
+
+
+@pytest.mark.cuda
+def test_farm_on_gpu(cuda_device, tmp_path):
+    from monetdb_tpu_torch.farm import Farm
+    from monetdb_tpu_torch.server import Client
+    farm = Farm(str(tmp_path / "farm"))
+    try:
+        farm.create("db")
+        host, port = farm.proxy_listen()
+        c = Client(host, port, database="db")
+        c.sql("create table t (a int)")
+        c.sql("insert into t values (4), (5)")
+        assert c.sql("select sum(a) from t").rows == [(9,)]
+        assert farm.db("db").device.type == "cuda"
+        c.close()
+    finally:
+        farm.stop_all()
+
+
+@pytest.mark.cuda
+def test_geom_on_gpu_matches_cpu(cuda_device):
+    from monetdb_tpu_torch.session import Session
+    from monetdb_tpu_torch.storage import Database
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(-10, 10, (5000, 2))
+    poly = ("POLYGON ((-8 -8, 8 -8, 8 8, -8 8, -8 -8), "
+            "(-2 -2, 2 -2, 2 2, -2 2, -2 -2))")
+    sqls = [f"select count(*) from p where st_contains('{poly}', g)",
+            f"select id, st_distance(g, '{poly}') from p where id < 300 "
+            "order by id",
+            "select sum(st_distance_geographic(g, 'POINT (1 2)')) from p",
+            "select sum(st_x(g)), sum(st_y(g)) from p"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(Database(device=dev))
+        s.sql("create table p (id int, g varchar(60))")
+        s.sql("insert into p values " + ", ".join(
+            f"({i}, 'POINT ({x:.6f} {y:.6f})')" for i, (x, y) in
+            enumerate(xy)))
+        out[dev] = [s.sql(q).rows for q in sqls]
+    assert out["cuda"][0] == out["cpu"][0]
+    for g, w in zip(out["cuda"][1:], out["cpu"][1:]):
+        for gr, wr in zip(g, w):
+            assert gr == pytest.approx(wr, rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_external_ops_on_gpu(cuda_device):
+    from monetdb_tpu_torch.ops.external import (
+        external_sort, streaming_cumsum, streaming_window_sum)
+    rng = np.random.default_rng(9)
+    arr = rng.integers(-10**15, 10**15, 1 << 20).astype(np.int64)
+    ties = np.where(rng.random(1 << 20) < 0.9, 7,
+                    rng.integers(0, 1000, 1 << 20)).astype(np.int64)
+    assert np.array_equal(external_sort(arr.copy(), chunk_rows=1 << 17),
+                          np.sort(arr))
+    assert np.array_equal(external_sort(arr.copy(), chunk_rows=1 << 17,
+                                        descending=True), np.sort(arr)[::-1])
+    assert np.array_equal(external_sort(ties.copy(), chunk_rows=1 << 16),
+                          np.sort(ties))
+    small = arr // 1000
+    assert np.array_equal(streaming_cumsum(small, chunk_rows=1 << 17),
+                          np.cumsum(small))
+    c = np.concatenate([[0], np.cumsum(small)])
+    want = c[1:] - c[np.maximum(np.arange(len(small)) - 999, 0)]
+    assert np.array_equal(streaming_window_sum(small, 1000,
+                                               chunk_rows=1 << 17), want)

@@ -25,13 +25,24 @@ from monetdb_tpu.engine import Engine as RefEngine  # noqa: E402
 from monetdb_tpu.ops.calc import CalcError as RefCalcError  # noqa: E402
 from monetdb_tpu_torch.bench.tpch_load import load_tpch  # noqa: E402
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
+import monetdb_tpu.sql.binder as ref_binder  # noqa: E402
 from monetdb_tpu_torch.engine import Engine  # noqa: E402
 from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
+import monetdb_tpu_torch.sql.binder as binder  # noqa: E402
 
 from test_torch_cuda import (  # noqa: E402
     AGG_SQL, CASE_SQL, ERROR_SQL, EXPR_SQL, JOIN_EXPAND_SQL, SUBQUERY_SQL,
     agg_table, dup_tables, expr_table)
 from test_torch_engine import _assert_rows_equal, _catalogs  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _same_generated_names():
+    """Generated result names (``col<N>``) come from a process-wide counter
+    in each binder; start both at 0, whatever other files of the same
+    worker bound before."""
+    binder.Binder._auto_counter = ref_binder.Binder._auto_counter = 0
+
 
 _NIL32 = int(np.iinfo(np.int32).min)
 _NIL64 = int(np.iinfo(np.int64).min)

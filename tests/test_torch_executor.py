@@ -292,7 +292,7 @@ WAITS_SQL = [
     ("select name from sys.tables", "storage"),
 ]
 #: modules a later slice ported: their statements answer as the reference
-PORTED = {"storage"}
+PORTED = {"storage", "ops/geom.py"}
 
 
 @pytest.mark.parametrize("sql,needle", WAITS_SQL)

@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax():
         "testing, udf)\n"
         "from monetdb_tpu_torch.sql import distribute, psm, syscat\n"
         "from monetdb_tpu_torch.storage import csv_native, database, wal\n"
+        "from monetdb_tpu_torch import cli, farm, server\n"
+        "from monetdb_tpu_torch.ops import external, geom\n"
         "s = session.Session(database.Database(device='cpu'))\n"
         "s.sql('create table t (a int)')\n"
         "s.sql('create sequence q as integer start with 2')\n"
@@ -50,6 +52,34 @@ def test_import_pulls_in_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_module_entry_point_loads_no_jax():
+    """``python -m monetdb_tpu_torch -s "select 1" --device cpu`` answers,
+    and running the package's __main__ loads neither jax nor monetdb_tpu."""
+    r = subprocess.run(
+        [sys.executable, "-m", "monetdb_tpu_torch", "-s", "select 1",
+         "--device", "cpu"], cwd=_ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "1 tuple" in r.stdout
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['monetdb_tpu_torch', '-s', 'select 1', "
+        "'--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('monetdb_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as ex:\n"
+        "    assert ex.code == 0, ex.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'monetdb_tpu' or "
+        "m.startswith('monetdb_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
 
 
 def test_no_source_imports_jax():

@@ -227,13 +227,22 @@ def test_dbapi_columnar_fetch_and_transactions():
 
 
 def test_network_connections_name_the_missing_module():
-    with pytest.raises(dbapi.InterfaceError, match="server.py"):
-        dbapi.connect(host="localhost", port=50000, device="cpu")
-    s = _port_session()
-    s.sql("create remote table r (a int) on "
-          "'mapi:monetdb://localhost:50000/db'")
-    with pytest.raises(Exception, match="server.py"):
-        s.sql("select a from r")
+    """The network mode needed server.py, which is ported now: a DB-API
+    connection and a remote table reach a server of the port."""
+    from monetdb_tpu_torch.server import Server
+    srv = Server(Database(device="cpu")).start()
+    try:
+        host, port = srv.address
+        con = dbapi.connect(host=host, port=port)
+        cur = con.cursor()
+        cur.execute("create table t (a int)")
+        cur.execute("insert into t values (4), (2)")
+        s = _port_session()
+        s.sql(f"create remote table r (a int) on '{host}:{port}/t'")
+        assert s.sql("select a from r order by a").rows == [(2,), (4,)]
+        con.close()
+    finally:
+        srv.stop()
 
 
 @pytest.fixture(scope="module")
