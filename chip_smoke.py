@@ -88,7 +88,25 @@ Phases, one or more output lines each, and a line with each phase's time:
              card, with a shipped predicate, against the local table; TLS
              with a throwaway certificate (when openssl is there);
              challenge-response auth.
-13. durable - a store on local disk under $TMPDIR at SF1: the eight tables
+13. spmd   - the SPMD row mesh: ``row_mesh([cuda:0] * 8)``, eight shards
+             of the one card, each on a thread of its own.  The 22 queries
+             through ``Session(db, mesh=mesh).sql`` over the session
+             phase's store at the default ``spmd_*`` thresholds, one cold
+             and 3 warm runs each: rows equal to the oracle, no fallback;
+             the mesh must run at least 20 of the 22 and shuffle at least
+             one join and one group-by or distinct (else a second pass at
+             the reference dry run's scaled thresholds must).  Prints per
+             query the warm median beside the one-device Session and Engine
+             medians, seg_sum64 launches, the spmd / shuffle / retry counts
+             and the peak device memory above the tables.  Q1 and Q6 again
+             with ``assert_props`` (every shard's outputs compared); host
+             waits of a warm run of Q1, Q3, Q6, Q13 and Q18, none inside a
+             shard; ``sharded_q6`` and ``sharded_q1`` over the store's
+             lineitem (int32 columns) equal to the oracle's Q6 revenue and
+             Q1 sums, with 8 q1_grouped_sums launches a call; ``lane_counts``,
+             ``dist_group_sum``, ``dist_group_sum_auto`` and ``dist_fk_join``
+             over 2^23 int64 rows, uniform and Zipf(2) keys, equal to numpy.
+14. durable - a store on local disk under $TMPDIR at SF1: the eight tables
              made by SQL DDL, loaded by COPY BINARY (one .npy per numeric
              column, one text file per string column) and ``orders`` by
              COPY INTO from a CSV through the native parser; checkpoint;
@@ -106,28 +124,29 @@ Phases, one or more output lines each, and a line with each phase's time:
              card: the 22 queries through its proxy (oracle over the
              changed arrays), status, stop (must checkpoint), snapshot,
              restore as ``db2`` and a ``Funnel`` counting lineitem in both.
-14. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
+15. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
              (tests/sqllogic/ref, held to REF_LEDGER.md with the ledger
              generator's CHAINS) through ``SqlLogicRunner(Session(
              Database()))`` on the card: every pass file passes, every
              known-fail fails.
-15. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
+16. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
              polygon (64 vertices with a hole; a multipolygon), distance
              sums to a polygon, multipolygon, linestring and point,
              geographic DWithin, coordinate sums, st_area over 1,000
              polygons: counts exactly and floats to rel 1e-9 against numpy
              (even-odd ray cast, segment distance, haversine, shoelace);
              peak device memory per query.
-16. external - ``external_sort`` of 2^27 seeded int64 (ascending,
+17. external - ``external_sort`` of 2^27 seeded int64 (ascending,
              descending) and of 2^26 values that are 90% one value, in
              tiles of 2^24 rows; ``streaming_cumsum`` and
              ``streaming_window_sum(w=1000)`` over the 2^27 values: equal
              to numpy, peak device memory within 8 tiles; rows/s.  The
              reference's 1B-row envelope is cut to 2^27 rows for time.
 
-The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12
-and 13 (before its replayed queries, then again before the farm's) and
-read just after each.  Then one JSON line with each kernel's launches
+The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12,
+13 (before its SQL, then again before the sharded kernel steps) and 14
+(before its replayed queries, then again before the farm's) and read just
+after each.  Then one JSON line with each kernel's launches
 on its path, error, times and bound, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero without that line.
@@ -147,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -159,7 +179,7 @@ from monetdb_tpu_torch.bench import tpcds, tpch_oracle
 from monetdb_tpu_torch.bench.tpch_gen import SCHEMA, gen_tpch
 from monetdb_tpu_torch.bench.tpch_load import load_tpch, load_tpch_db
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES
-from monetdb_tpu_torch.column import Column
+from monetdb_tpu_torch.column import Column, capacity_for
 from monetdb_tpu_torch.dtypes import BOOL, I64
 from monetdb_tpu_torch.engine import Engine, plan_cache_stats
 from monetdb_tpu_torch.exec import fragment
@@ -168,6 +188,10 @@ from monetdb_tpu_torch.ops import cuda_kernels as CK
 from monetdb_tpu_torch.ops import external as X
 from monetdb_tpu_torch.ops import window as W
 from monetdb_tpu_torch.ops.geom import GEOD_RADIUS
+from monetdb_tpu_torch.parallel import (row_mesh, shard_array, sharded_q1,
+                                        sharded_q6)
+from monetdb_tpu_torch.parallel import mesh as MESH
+from monetdb_tpu_torch.parallel import shuffle as SH
 from monetdb_tpu_torch.server import Client, ColumnarResult, Server
 from monetdb_tpu_torch.session import Session
 from monetdb_tpu_torch.storage import Database, csv_native
@@ -563,18 +587,21 @@ def phase_slice(dev, cat, resident: int, want: dict, entry: dict,
 def host_waits(eng: Engine, sql: str):
     """One warm run of a statement with torch's sync debug mode on: (number
     of times the host waited for the stream, how many of them inside the
-    plan: the fragment interpreter's ``_run_single`` / ``_run_raw`` or any
-    method of exec/executor.py, whose join and set-operation children run on
-    worker threads, below no ``Executor.run`` frame).  The interpreter's
+    plan: the fragment interpreter's ``_run_single`` / ``_run_raw`` /
+    ``_run_shard`` (one shard of a mesh) or any method of
+    exec/executor.py, whose join and set-operation children run on worker
+    threads, below no ``Executor.run`` frame).  The interpreter's
     nodes must add none: a run waits once for the error code, count and
     totals, and once for each result array.  The executor reads every
     data-dependent count back."""
     in_plan = []
 
     def note(message, category, filename, lineno, file=None, line=None):
+        # (a mesh shard's wait is reported on the shard's own thread,
+        # whose stack starts at the shard: _run_shard)
         stack = traceback.extract_stack()
         in_plan.append(any(
-            f.name in ("_run_single", "_run_raw")
+            f.name in ("_run_single", "_run_raw", "_run_shard")
             or f.filename.endswith("executor.py")
             for f in stack))
 
@@ -1075,6 +1102,329 @@ def phase_session(dev, data, want: dict, frag: dict, seg_entry: dict):
         f"Q{q} {medians[q]:.2f}/{frag[q]['median_ms']:.2f}"
         for q in SLICE_QUERIES))
     return db, per_run, medians
+
+
+#: the spmd phase: 8 shards on the one card (the reference's dry run uses
+#: 8 devices), 3 warm runs a query, 2^23 rows for the shuffle primitives
+SPMD_SHARDS = 8
+SPMD_WARM_RUNS = 3
+SPMD_SHUFFLE_ROWS = 1 << 23
+#: queries whose host waits are counted on the mesh
+SPMD_WAIT_QUERIES = (1, 3, 6, 13, 18)
+#: the reference dry run's scaled thresholds (__graft_entry__.py:105-107),
+#: for a second pass if SF1 at the default thresholds shuffles no group-by
+SPMD_DRYRUN = {"spmd_min_shard_rows": 64, "spmd_broadcast_rows": 4096,
+               "spmd_shuffle_min_rows": 64}
+_SPMD_COUNTS = ("runs", "spmd_runs", "shuffle_joins", "shuffle_groupbys",
+                "shuffle_distincts", "cap_retries")
+
+
+def _np_hash64(keys: np.ndarray) -> np.ndarray:
+    """numpy's own splitmix avalanche (parallel/shuffle.py hash64):
+    int64 multiplies wrap, >> is arithmetic."""
+    with np.errstate(over="ignore"):
+        h = keys.astype(np.int64) * np.int64(-7046029254386353131)
+        h = h ^ (h >> np.int64(31))
+        h = h * np.int64(-4417276706812531889)
+        return (h ^ (h >> np.int64(33))) & np.int64(0x3FFF_FFFF_FFFF_FFFF)
+
+
+def _np_group_sums(k: np.ndarray, v: np.ndarray) -> dict:
+    order = np.argsort(k, kind="stable")
+    ks, vs = k[order], v[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    return dict(zip(ks[starts].tolist(),
+                    np.add.reduceat(vs, starts).tolist()))
+
+
+def _mesh_group_sums(keys, sums, live) -> dict:
+    lv = live.cpu().numpy().astype(bool)
+    return dict(zip(keys.cpu().numpy()[lv].tolist(),
+                    sums.cpu().numpy()[lv].tolist()))
+
+
+def phase_spmd(dev, db, want: dict, frag: dict, sess_medians: dict,
+               seg: dict, q1: dict, gsl: dict) -> None:
+    """The SPMD row mesh on the card: ``row_mesh([cuda:0] * 8)``, one
+    thread per shard (monetdb_tpu_torch/parallel/).  The 22 queries through
+    ``Session(db, mesh=mesh).sql`` over the session phase's SF1 store
+    (rows equal to the oracle; the mesh must run at least 20 of them,
+    shuffle a join and a group-by or distinct); host waits inside the
+    shards must be 0; Q1 and Q6 again with the cross-shard replication
+    check (assert_props); then sharded_q6 / sharded_q1 over the store's
+    lineitem (exact; 8 q1_grouped_sums launches a call) and the shuffle
+    primitives over 2^23 int64 rows, uniform and Zipf, against numpy."""
+    mesh = row_mesh([dev] * SPMD_SHARDS)
+    s = Session(db, mesh=mesh)
+    db.catalog()                        # the tables are on the card already
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tables = torch.cuda.memory_allocated(dev)
+    _log(f"spmd: {mesh} over the session phase's store "
+         f"({tables / 2**20:.1f} MiB on the card); {_dispatch_cost(dev)}")
+    _spmd_sql(dev, s, want, frag, sess_medians, seg, tables)
+    config.set("assert_props", True)    # every shard's outputs compared
+    try:
+        for q in (1, 6):
+            r0 = fragment.STATS["spmd_runs"]
+            rows = list(s.sql(QUERIES[q]).rows)
+            diff = tpch_oracle.rows_differ(
+                rows, tpch_oracle.decoded(q, want[q]), AVG_RTOL)
+            if diff or fragment.STATS["spmd_runs"] != r0 + 1:
+                raise AssertionError(f"spmd Q{q} with assert_props: "
+                                     f"{diff or 'did not run on the mesh'}")
+    finally:
+        config.reset("assert_props")
+    _log("spmd: Q1 and Q6 with assert_props: every shard's outputs equal, "
+         "rows equal to the oracle")
+    waits = []
+    for q in SPMD_WAIT_QUERIES:
+        n_waits, n_in_plan = host_waits(s._engine(), QUERIES[q])
+        waits.append(f"Q{q} {n_waits} ({n_in_plan} inside the shards)")
+        if n_in_plan:
+            raise AssertionError(f"spmd Q{q}: {n_in_plan} host waits inside "
+                                 f"the shards")
+    _log(f"spmd: host waits a warm run: {', '.join(waits)}")
+    li = db.table("lineitem")[0]
+    _spmd_kernel_steps(dev, mesh, li, want, q1, gsl)
+    del li, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    _spmd_shuffles(dev, mesh)
+
+
+def _dispatch_cost(dev) -> str:
+    """Host microseconds an eager op takes when 1 thread runs 2,000 of
+    them, and when each of SPMD_SHARDS threads runs 2,000 at once (wall
+    over all ops): what the shards of a mesh on one card pay per op."""
+    x = torch.zeros(8, device=dev)
+    n = 2000
+
+    def ops():
+        for _ in range(n):
+            torch.where(x > 0, x, x)
+
+    out = []
+    for threads in (1, SPMD_SHARDS):
+        torch.cuda.synchronize()
+        workers = [threading.Thread(target=ops) for _ in range(threads)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / (n * threads) * 1e6)
+    return (f"host cost per eager op: {out[0]:.2f} us from 1 thread, "
+            f"{out[1]:.2f} us from {SPMD_SHARDS} threads at once")
+
+
+def _spmd_sql(dev, s, want, frag, sess_medians, seg, tables) -> None:
+    _zero_launches()                    # the spmd SQL path starts here
+    meshed = 0
+    total = dict.fromkeys(_SPMD_COUNTS, 0)
+    falls0 = fragment.STATS["fallbacks"]
+    for q in SLICE_QUERIES:
+        sql = QUERIES[q]
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats0 = dict(fragment.STATS)
+        before = CK.LAUNCHES["seg_sum64"]
+        t0 = time.perf_counter()
+        rows = list(s.sql(sql).rows)
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(SPMD_WARM_RUNS):
+            mesh0 = dict(MESH.STATS)    # the last warm run's collectives
+            t0 = time.perf_counter()
+            wrows = list(s.sql(sql).rows)
+            warm.append(time.perf_counter() - t0)
+            if wrows != rows:
+                raise AssertionError(f"spmd Q{q}: warm rows differ")
+        colls = MESH.STATS["collectives"] - mesh0["collectives"]
+        sent = MESH.STATS["bytes"] - mesh0["bytes"]
+        diff = tpch_oracle.rows_differ(
+            rows, tpch_oracle.decoded(q, want[q]), AVG_RTOL)
+        if diff or not rows:
+            raise AssertionError(f"spmd Q{q} != oracle: {diff or 'no rows'}")
+        d = {k: fragment.STATS[k] - stats0[k] for k in _SPMD_COUNTS}
+        for k in _SPMD_COUNTS:
+            total[k] += d[k]
+        # on the mesh: every run of the query (a run the mesh gives up on
+        # runs again on one device and counts twice under "runs")
+        meshed += 0 < d["spmd_runs"] == d["runs"]
+        med = statistics.median(warm) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - tables
+        _log(f"spmd: Q{q} SF{SF} rows={len(rows)} equal to oracle; cold "
+             f"{cold * 1e3:.1f} ms, warm "
+             f"{', '.join(f'{w * 1e3:.2f}' for w in warm)} ms (median "
+             f"{med:.2f} ms; one device: Session {sess_medians[q]:.2f} ms, "
+             f"Engine {frag[q]['median_ms']:.2f} ms); seg_sum64 launches "
+             f"{CK.LAUNCHES['seg_sum64'] - before} in {1 + SPMD_WARM_RUNS} "
+             f"runs; spmd_runs {d['spmd_runs']}, shuffle joins / group-bys "
+             f"/ distincts {d['shuffle_joins']} / {d['shuffle_groupbys']} / "
+             f"{d['shuffle_distincts']}, cap_retries {d['cap_retries']}; "
+             f"a warm run: {colls} collectives a shard, "
+             f"{sent / 2**20:.1f} MiB handed to them; peak device memory "
+             f"above the tables {peak / 2**20:.1f} MiB")
+    seg["launches_spmd"] = CK.LAUNCHES["seg_sum64"]
+    q_launch = CK.LAUNCHES["q1_grouped_sums"]
+    g_launch = CK.LAUNCHES["grouped_sum_limbs"]
+    _log(f"spmd: 22 queries equal to the oracle; the mesh ran {meshed} of "
+         f"them; totals {total}; seg_sum64 launches {seg['launches_spmd']}")
+    if fragment.STATS["fallbacks"] != falls0:
+        raise AssertionError("the spmd phase fell back to the executor")
+    if meshed < 20:
+        raise AssertionError(f"SQL ran on the mesh only {meshed}/22 times")
+    if seg["launches_spmd"] <= 0 or q_launch or g_launch:
+        raise AssertionError(f"spmd SQL path launches {CK.LAUNCHES}")
+    if total["shuffle_joins"] <= 0:
+        raise AssertionError("no SQL join hash-repartitioned through the "
+                             "all-to-all shuffle")
+    if total["shuffle_groupbys"] + total["shuffle_distincts"] <= 0:
+        _log("spmd: no group-by or distinct shuffled at the default "
+             "thresholds; second pass at the dry run's thresholds "
+             f"{SPMD_DRYRUN}")
+        _spmd_dryrun_pass(s, want)
+
+
+def _spmd_dryrun_pass(s, want) -> None:
+    for k, v in SPMD_DRYRUN.items():
+        config.set(k, v)
+    try:
+        stats0 = dict(fragment.STATS)
+        for q in SLICE_QUERIES:
+            rows = list(s.sql(QUERIES[q]).rows)
+            diff = tpch_oracle.rows_differ(
+                rows, tpch_oracle.decoded(q, want[q]), AVG_RTOL)
+            if diff:
+                raise AssertionError(f"spmd dry-run pass Q{q}: {diff}")
+        d = {k: fragment.STATS[k] - stats0[k] for k in _SPMD_COUNTS}
+    finally:
+        for k in SPMD_DRYRUN:
+            config.reset(k)
+    _log(f"spmd: dry-run thresholds pass: 22 queries equal to the oracle; "
+         f"totals {d}")
+    if d["shuffle_groupbys"] + d["shuffle_distincts"] <= 0:
+        raise AssertionError("no SQL group-by/distinct repartitioned "
+                             "through the shuffle")
+
+
+def _spmd_kernel_steps(dev, mesh, li, want, q1: dict, gsl: dict) -> None:
+    """sharded_q6 and sharded_q1 over the store's lineitem on the card."""
+    n = li.count
+    rf, ls = li.col("l_returnflag"), li.col("l_linestatus")
+    n_ls = len(ls.sdict.values)
+
+    def col(name, dtype=torch.int32):
+        return li.col(name).data[:n].to(dtype)
+
+    code = (rf.data[:n].to(torch.int32) * n_ls
+            + ls.data[:n].to(torch.int32))
+    lo = int((np.datetime64("1994-01-01")
+              - np.datetime64("1970-01-01")).astype(int))
+    hi = int((np.datetime64("1995-01-01")
+              - np.datetime64("1970-01-01")).astype(int))
+    cutoff = int((np.datetime64("1998-12-01") - 90
+                  - np.datetime64("1970-01-01")).astype(int))
+    q6_args = (shard_array(col("l_shipdate"), mesh),
+               shard_array(col("l_discount"), mesh, fill=-1),
+               shard_array(col("l_quantity"), mesh, fill=1 << 30),
+               shard_array(col("l_extendedprice"), mesh))
+    q1_args = [shard_array(code, mesh, fill=-1)] + [
+        shard_array(col(c), mesh) for c in (
+            "l_shipdate", "l_quantity", "l_extendedprice", "l_discount",
+            "l_tax")]
+    step6, step1 = sharded_q6(mesh), sharded_q1(mesh, domain=FUSED_DOMAIN)
+    _zero_launches()                    # the sharded kernel steps start here
+    rev = step6(*q6_args, lo, hi, 5, 7, 2400)
+    sums = step1(*q1_args, cutoff)
+    torch.cuda.synchronize()
+    q1["launches_spmd"] = CK.LAUNCHES["q1_grouped_sums"]
+    gsl["launches_spmd"] = CK.LAUNCHES["grouped_sum_limbs"]
+    if q1["launches_spmd"] != SPMD_SHARDS or gsl["launches_spmd"]:
+        raise AssertionError(f"sharded_q1 launches {CK.LAUNCHES}, expected "
+                             f"{SPMD_SHARDS} q1_grouped_sums")
+    if int(rev) != want[6][0][0]:
+        raise AssertionError(f"sharded_q6 {int(rev)} != oracle {want[6]}")
+    sums = [x.tolist() for x in sums]
+    live = [g for g in range(FUSED_DOMAIN) if sums[5][g]]
+    got = [(str(rf.sdict.values[g // n_ls]), str(ls.sdict.values[g % n_ls]),
+            sums[0][g], sums[1][g], sums[2][g], sums[3][g], sums[5][g])
+           for g in live]
+    if got != [w[:6] + w[9:] for w in want[1]]:
+        raise AssertionError(f"sharded_q1 {got} != oracle {want[1]}")
+    ms6 = time_cuda(lambda: step6(*q6_args, lo, hi, 5, 7, 2400), reps=10,
+                    warmup=2)
+    ms1 = time_cuda(lambda: step1(*q1_args, cutoff), reps=10, warmup=2)
+    _log(f"spmd: sharded_q6 over {n} rows in {SPMD_SHARDS} shards equal to "
+         f"the oracle's revenue, {ms6:.3f} ms (CUDA events around the "
+         f"call); sharded_q1 equal to the oracle's Q1 sums and counts with "
+         f"{q1['launches_spmd']} q1_grouped_sums launches, {ms1:.3f} ms")
+
+
+def _spmd_shuffles(dev, mesh) -> None:
+    """lane_counts, dist_group_sum, dist_group_sum_auto and dist_fk_join
+    over SPMD_SHUFFLE_ROWS int64 rows against numpy, exactly."""
+    n = SPMD_SHUFFLE_ROWS
+    d = mesh.size
+    g = torch.Generator(device=dev).manual_seed(77)
+    uni = torch.randint(0, 1 << 20, (n,), generator=g, device=dev)
+    # Zipf(2.0) by inverse transform over 1..2^20 (a hot key 1 of ~61%)
+    ranks = torch.arange(1, (1 << 20) + 1, device=dev, dtype=torch.float64)
+    cdf = torch.cumsum(ranks ** -2.0, 0)
+    zipf = torch.searchsorted(cdf / cdf[-1], torch.rand(
+        n, generator=g, device=dev, dtype=torch.float64)) + 1
+    vals = torch.randint(-(1 << 40), 1 << 40, (n,), generator=g, device=dev)
+    live = torch.rand(n, generator=g, device=dev) < 0.95
+    v_np, lv_np = vals.cpu().numpy(), live.cpu().numpy()
+    for name, keys in (("uniform", uni), ("zipf", zipf)):
+        k_np = keys.cpu().numpy()
+        t0 = time.perf_counter()
+        counts = SH.lane_counts(mesh, keys, live)
+        dest = _np_hash64(k_np) % d
+        want_counts = np.stack([
+            np.bincount(dest[r * n // d:(r + 1) * n // d][
+                lv_np[r * n // d:(r + 1) * n // d]], minlength=d)
+            for r in range(d)])
+        if not np.array_equal(counts, want_counts):
+            raise AssertionError(f"lane_counts ({name}) != numpy")
+        exp = _np_group_sums(k_np[lv_np], v_np[lv_np])
+        cap = capacity_for(int(counts.max()))
+        got = _mesh_group_sums(*SH.dist_group_sum(mesh, keys, vals, live,
+                                                  cap))
+        if got != exp:
+            raise AssertionError(f"dist_group_sum ({name}) != numpy")
+        *out, info = SH.dist_group_sum_auto(mesh, keys, vals, live)
+        if _mesh_group_sums(*out) != exp:
+            raise AssertionError(f"dist_group_sum_auto ({name}) != numpy")
+        torch.cuda.synchronize()
+        _log(f"spmd: {name} keys over {n} rows: lane_counts, "
+             f"dist_group_sum (lane {cap}) and dist_group_sum_auto "
+             f"({info}) equal to numpy ({len(exp)} groups), "
+             f"{time.perf_counter() - t0:.2f} s")
+    nr = 1 << 20                        # build side: unique keys 0..nr-1
+    rk = torch.arange(nr, device=dev)
+    rv = rk * 1000 + 7
+    rlive = torch.ones(nr, dtype=torch.bool, device=dev)
+    lk = torch.randint(0, nr + nr // 4, (n,), generator=g, device=dev)
+    t0 = time.perf_counter()
+    cap = capacity_for(int(max(SH.lane_counts(mesh, lk, live).max(),
+                               SH.lane_counts(mesh, rk, rlive).max())))
+    ok, (olv, orv), hit = SH.dist_fk_join(mesh, lk, [vals], live, rk, [rv],
+                                          rlive, cap)
+    h = hit.cpu().numpy()
+    got = np.stack([ok.cpu().numpy()[h], olv.cpu().numpy()[h],
+                    orv.cpu().numpy()[h]])
+    lk_np = lk.cpu().numpy()
+    m = lv_np & (lk_np < nr)
+    exp = np.stack([lk_np[m], v_np[m], lk_np[m] * 1000 + 7])
+    order_g = np.lexsort(got[:2][::-1])
+    order_e = np.lexsort(exp[:2][::-1])
+    if not np.array_equal(got[:, order_g], exp[:, order_e]):
+        raise AssertionError("dist_fk_join != numpy")
+    _log(f"spmd: dist_fk_join of {n} probe rows against {nr} keys (lane "
+         f"{cap}) equal to numpy ({int(m.sum())} matches), "
+         f"{time.perf_counter() - t0:.2f} s")
 
 
 #: clients that run the 22 queries at once in phase_server
@@ -2001,6 +2351,8 @@ def main(argv) -> int:
         "session", phase_session, dev, data, want, frag, seg)
     _timed("server", phase_server, dev, db, data, want, sess_launches,
            sess_medians, seg)
+    _timed("spmd", phase_spmd, dev, db, want, frag, sess_medians, seg,
+           q1, gsl)
     db.close()
     del db
     gc.collect()

@@ -25,9 +25,9 @@ _defaults: Dict[str, Any] = {
     "small_sort_threshold": 1 << 14,
     # default bucket count for radix/hash partitioning
     "radix_bits": 8,
-    # --- SPMD plan distribution: keys of the reference's config, read by
-    # nothing yet (the port runs every plan on one device) ----------------
-    # when >1 device is visible, sessions construct a row mesh and run
+    # --- SPMD plan distribution over a row mesh (parallel/, the fragment's
+    # _run_spmd) ----------------------------------------------------------
+    # when >1 CUDA device is visible, sessions construct a row mesh and run
     # eligible plans SPMD by default; set 0 to force single-device execution
     "spmd_auto_mesh": True,
     # tables at or above this many rows (capacity) are row-sharded over

@@ -237,10 +237,20 @@ def _decode_column(col) -> list:
 
 
 class Engine:
-    """SQL in, rows out, on the device that holds ``catalog``'s tensors."""
+    """SQL in, rows out, on the device that holds ``catalog``'s tensors.
+    With a ``mesh`` (a ``parallel.row_mesh`` of more than one shard) fused
+    plans execute SPMD across the mesh - the reference's mitosis /
+    mergetable intra-query parallelism (opt_mitosis.c:21), one interpreter
+    per shard (exec/fragment.py _run_spmd)."""
 
-    def __init__(self, catalog: Catalog):
+    def __init__(self, catalog: Catalog, mesh=None, spmd_auto=False):
         self.catalog = catalog
+        self.mesh = mesh
+        # spmd_auto: the mesh came from the session default (mitosis in
+        # default_pipe) rather than an explicit request - only shard
+        # plans whose largest scan reaches spmd_min_shard_rows, the
+        # reference's MIN_PART_SIZE gate (opt_mitosis.c:17)
+        self.spmd_auto = spmd_auto
 
     def plan(self, sql: str):
         return bind_select(self.catalog, sql)
@@ -336,7 +346,8 @@ class Engine:
                            "usec": int(fragment.lower_ms * 1e3)})
         QUEUE.check(CURRENT_QUERY.tag)
         try:
-            fr = fragment.run(events=events)
+            fr = fragment.run(events=events, mesh=self.mesh,
+                              spmd_require_min=self.spmd_auto)
         except Unsupported:
             stats_inc("fallbacks")
             return None

@@ -37,8 +37,16 @@ Kept from the reference's design:
 
 A plan the fragment rejects raises ``Unsupported``, at lowering or at run
 time; the engine then runs it through the op-at-a-time executor
-(exec/executor.py), as it does every plan with window functions.  Not
-ported yet: SPMD over a device mesh.
+(exec/executor.py), as it does every plan with window functions.
+
+With a row mesh (``parallel/``), ``CompiledFragment.run(mesh=...)`` runs
+the plan SPMD, one interpreter per shard on a thread of its own: the
+largest scanned tables are row-sharded, ``_SpmdRewriter`` (the reference's
+rewriter, host-only) places gather barriers, hash-repartition exchanges
+and two-phase dense group-bys, and the interpreter's four mesh nodes
+(``r_scan_sharded``, ``r_gather``, ``r_repartition``,
+``r_groupby_dense_spmd``) call the mesh's collectives.  A plan the mesh
+path rejects (``Unsupported``) runs on one device, as in the reference.
 """
 
 from __future__ import annotations
@@ -65,6 +73,8 @@ from ..ops._tensor import (catalog_device, idiv as _idiv, irem as _irem,
                            set_drop as _set_drop, tdt as _tdt)
 from ..ops.cuda_kernels import seg_sum64
 from ..ops.sort import sort_key
+from ..parallel.mesh import run_shards
+from ..parallel.shuffle import exchange, hash64 as _hash64
 from ..plan import logical as L
 from ..plan.exprs import (Between, BinOp, BoolOp, Case, Cast, Cmp, ColRef,
                           Const, Expr, Func, InList, IsNull, Like, Not,
@@ -220,6 +230,9 @@ class Lowering:
         # default; the host retries with the measured total on overflow)
         self.expand: Dict[int, Optional[int]] = expand or {}
         self.expand_used: Dict[int, int] = {}
+        # ordinal -> output capacity of every keyed group-by, with a retry
+        # channel or without one (the mesh checks the latter's counts)
+        self.group_caps: Dict[int, int] = {}
         self.scan_counts: Dict[int, int] = {}
         self._join_ord = 0
         # functional dependencies discovered at unique-build joins:
@@ -726,6 +739,7 @@ class Lowering:
             oc = min(oc, hard)
             if oc < bound:
                 self.expand_used[ordinal] = oc    # retry channel active
+            self.group_caps[ordinal] = oc
             return oc
 
         if dense_ok:
@@ -1717,12 +1731,16 @@ class _SegReduce:
 
 class _Interp:
     """IR interpreter: every method runs torch ops on the inputs' device
-    and none reads a value back to the host.  Nodes the port does not have
-    (the SPMD ones) raise Unsupported."""
+    and none reads a value back to the host.  A node it does not have
+    raises Unsupported."""
 
-    def __init__(self, inputs):
+    def __init__(self, inputs, coll=None, nsh: int = 1):
         self.inputs = inputs
         self.device = inputs[0].device
+        # SPMD mode (one shard of a row mesh): the shard's collectives
+        # (parallel/mesh.py Collectives) + shard count; None = one device
+        self.coll = coll
+        self.nsh = nsh
         self.errs: list = []
         # total counts per compaction barrier / group bucket (the host
         # compares each with its static capacity and retries on overflow)
@@ -1753,9 +1771,26 @@ class _Interp:
             self._vmask = outer
 
     def err(self):
+        """This shard's error code (the mesh's is combined with the
+        totals in ``combined_scalars``)."""
         if not self.errs:
             return torch.zeros((), dtype=torch.int32, device=self.device)
         return torch.stack(self.errs).max()
+
+    def combined_scalars(self):
+        """(error code, count-retry totals) over the whole mesh: the
+        reference takes a ``pmax`` of the error and of each total where it
+        is made; nothing on the device reads them, so here one ``pmax`` of
+        all of them at the end of the run does the same with one
+        collective."""
+        err, tots = self.err(), self.exp_totals
+        if self.coll is None:
+            return err, tots
+        keys = list(tots)
+        vec = self.coll.pmax(torch.stack(
+            [err.to(torch.int64)] + [tots[k].to(torch.int64).reshape(())
+                                     for k in keys]))
+        return vec[0], dict(zip(keys, vec[1:]))
 
     def _dispatch(self, prefix: str, name: str):
         m = getattr(self, prefix + name, None)
@@ -1778,6 +1813,82 @@ class _Interp:
         env = {key: self.inputs[i] for key, i in cols}
         count = self.inputs[cnt_idx]
         return env, count, None, env[cols[0][0]].shape[0]
+
+    # -- the mesh nodes (SPMD; each is the identity on one device) -----------
+    def r_scan_sharded(self, ir):
+        """Row-sharded scan (the mitosis slice, opt_mitosis.c:21): shard i
+        holds rows [i*lcap, (i+1)*lcap) of the base column; the global
+        count becomes a per-shard liveness mask against the global row
+        index."""
+        _, cols, cnt_idx, _cap = ir
+        env = {key: self.inputs[i] for key, i in cols}
+        count = self.inputs[cnt_idx]            # global count (replicated)
+        lcap = env[cols[0][0]].shape[0]
+        if self.coll is None:
+            return env, count, None, lcap
+        base = self.coll.rank * lcap
+        mask = torch.arange(base, base + lcap, device=self.device) < count
+        return env, self._full(lcap), mask, lcap
+
+    def _full(self, v: int):
+        return torch.full((), v, dtype=torch.int64, device=self.device)
+
+    def r_gather(self, ir):
+        """Shard -> replicated barrier: all_gather every column + the
+        liveness mask over the mesh (the reference's mat.pack merge of
+        mitosis pieces, monetdb5/modules/mal/mat.c:124), in one
+        collective."""
+        env, count, mask, cap = self.rel(ir[1])
+        if self.coll is None:
+            return env, count, mask, cap
+        keys = list(env)
+        got = self.coll.all_gather(
+            [_bcast(env[k], cap) for k in keys]
+            + [self.live_of(cap, count, mask)])
+        gcap = cap * self.nsh
+        return dict(zip(keys, got[:-1])), self._full(gcap), got[-1], gcap
+
+    def _repart_code(self, keyspec, env, live, cap):
+        """Per-row partition key for a hash-repartition exchange.
+        ("join", keyspecs, side) reuses the join's packed key codes so
+        both sides of a key land on the same owner shard; ("keys", irs)
+        hash-combines normalized sort keys (group-by / distinct)."""
+        if keyspec[0] == "join":
+            _, keyspecs, side = keyspec
+            return self._join_codes(keyspecs, env, live, cap, side)
+        h = None
+        for e in keyspec[1]:
+            k = sort_key(_bcast(self.ev(e, env, live), cap), False, None)
+            h = k if h is None else _hash64(h) ^ k
+        return h, live
+
+    def r_repartition(self, ir):
+        """Ragged all-to-all hash-partition exchange (parallel/shuffle.py
+        design; the distributed feature the reference lacks - its remote
+        joins ship whole columns to one site, modules/mal/remote.c:971
+        RMTput).  Rows move to the shard owning hash(key) mod D; rows
+        with invalid keys (nil / out-of-range - they can never match)
+        stay local.  Static [D, lane_cap] send buffers, every column and
+        the lane counts in one all_to_all (``parallel.shuffle.exchange``);
+        the max lane count goes to the host, which retries with a larger
+        capacity on overflow (the expanding-join retry discipline)."""
+        _, cir, keyspec, lane_cap, ordinal = ir
+        env, count, mask, cap = self.rel(cir)
+        if self.coll is None:
+            return env, count, mask, cap     # single-device: no-op
+        D = self.nsh
+        live = self.live_of(cap, count, mask)
+        code, valid = self._repart_code(keyspec, env, live, cap)
+        dest = torch.where(valid & live, _hash64(code) % D,
+                           torch.where(live, self.coll.rank, D))
+        keys = list(env)
+        cnt, got, live_out = exchange(
+            dest, [_bcast(env[k], cap) for k in keys],
+            [_nil_const(env[k].dtype) for k in keys], lane_cap, self.coll)
+        # overflow channel: host compares max lane vs lane_cap, retries
+        self.exp_totals[-1 - ordinal] = cnt.max()
+        cap2 = D * lane_cap
+        return dict(zip(keys, got)), self._full(cap2), live_out, cap2
 
     def r_rename(self, ir):
         env, count, mask, cap = self.rel(ir[1])
@@ -2043,15 +2154,20 @@ class _Interp:
                 ok & _bcast(self.pv(extra, env2, ok), ecap), ecap
         return env2, total, None, ecap
 
-    def r_groupby_dense(self, ir):
+    def r_groupby_dense(self, ir, spmd: bool = False):
         """Histogram grouping over a combined small domain
         (gdk/gdk_group.c:20-60 strategies 4-5): aggregates land in domain
         slots, then compact by presence rank.  Group keys are decoded from
-        the slot index itself (the slot IS the packed key combination)."""
+        the slot index itself (the slot IS the packed key combination).
+        SPMD mode: per-shard slot partials are combined across the mesh
+        with psum/pmin/pmax (the mat_grp + BATgroupavg3combine shape,
+        gdk/gdk_aggr.c:2634), so every shard materializes identical,
+        replicated outputs without gathering rows."""
         (_, cir, key_outs, dense_specs, domain, aggs, fetch_keys,
          out_cap, ordinal) = ir
         env, count, mask, cap = self.rel(cir)
         dev = self.device
+        mcoll = self.coll if spmd else None
         live = self.live_of(cap, count, mask)
         comb = torch.zeros(cap, dtype=torch.int64, device=dev)
         for code_ir, d, _dt in dense_specs:
@@ -2060,6 +2176,8 @@ class _Interp:
         red = _SegReduce(safe, domain)
         if dense_specs:
             hist = red.sum(live.to(torch.int32))
+            if mcoll is not None:
+                hist = mcoll.psum(hist)
             present = hist > 0
             newid = torch.cumsum(present.to(torch.int64), 0) - 1
             ng = present.sum()
@@ -2102,7 +2220,7 @@ class _Interp:
                 arr = _bcast(self.ev(e, env, live), cap)
                 env2[key] = _gather_nil(arr, ext_rank, live_out)
         for key, spec in aggs:
-            slot = self._agg_slots(spec, env, live, cap, red)
+            slot = self._agg_slots(spec, env, live, cap, red, mcoll)
             if isinstance(slot, tuple):     # wide sum: (lo, hi) limbs
                 lo, hi = slot
                 env2[key] = compact(lo, _I64_MIN_PY)
@@ -2110,6 +2228,9 @@ class _Interp:
             else:
                 env2[key] = compact(slot, _nil_const(slot.dtype))
         return env2, ng, None, out_cap
+
+    def r_groupby_dense_spmd(self, ir):
+        return self.r_groupby_dense(ir, spmd=True)
 
     def _sort_ids(self, keys, live, cap):
         """Per-row group ids via device sort (ops/group.py _sort_group):
@@ -2202,32 +2323,47 @@ class _Interp:
         # dcode_range
         return arr.to(torch.int64) - code_ir[2]
 
-    def _agg_slots(self, spec, env, live, cap, red):
+    def _agg_slots(self, spec, env, live, cap, red, comb=None):
         """Aggregates into [0, seg) slots (gdk_aggr.c BATgroupsum family;
-        mirrors ops/aggr.py _seg_reduce + _fix_empty_and_nil)."""
+        mirrors ops/aggr.py _seg_reduce + _fix_empty_and_nil).  ``comb``:
+        the mesh's collectives - per-shard slot partials are combined
+        (psum for sums and counts, pmin/pmax for extrema) before
+        finalization, the associative decomposition the reference uses for
+        partitioned aggregation (BATgroupavg3combine, gdk/gdk_aggr.c:2634).
+        """
+        def comb_sum(x):
+            return x if comb is None else comb.psum(x)
+
         op = spec[0]
         if op == "count_star":
-            return red.sum(live.to(torch.int64))
+            return comb_sum(red.sum(live.to(torch.int64)))
         arr = _bcast(self.ev(spec[1], env, live), cap)
         nilm = _nilm_arr(arr) if spec[2] else \
             torch.zeros(cap, dtype=torch.bool, device=self.device)
         use = live & ~nilm
         if op == "count":
-            return red.sum(use.to(torch.int64))
+            return comb_sum(red.sum(use.to(torch.int64)))
         if op in ("count_distinct", "sum_distinct", "avg_distinct"):
+            # not shard-combinable: the SPMD rewrite repartitions or
+            # gathers before a distinct aggregate
+            if comb is not None:
+                raise Unsupported("distinct aggregate under SPMD combine")
             return self._agg_distinct(spec, arr, use, cap, red)
-        cnt = red.sum(use.to(torch.int64))
+        cnt = comb_sum(red.sum(use.to(torch.int64)))
         if op == "sum":
-            return self._sum_slots(spec, arr, use, cnt, red)
+            return self._sum_slots(spec, arr, use, cnt, red, comb_sum)
         if op == "prod":
             acc_dt = _tdt(spec[4])
             out = red.prod(torch.where(use, arr.to(acc_dt), 1))
+            if comb is not None:
+                # no product collective: gather the partials, reduce
+                out = comb.all_gather(out[None]).prod(0)
             return torch.where(cnt == 0, _nil_const(acc_dt), out)
         if op == "moment2":
             want, sample, scale = spec[4], spec[5], spec[6]
             xf = torch.where(use, arr.to(torch.float64), 0.0)
-            s1 = red.sum(xf)
-            s2 = red.sum(xf * xf)
+            s1 = comb_sum(red.sum(xf))
+            s2 = comb_sum(red.sum(xf * xf))
             denom = torch.clamp(cnt - 1 if sample else cnt, min=1)
             var = (s2 - s1 * s1 / torch.clamp(cnt, min=1)) / denom
             var = torch.clamp(var, min=0.0)
@@ -2241,9 +2377,11 @@ class _Interp:
         if op == "avg":
             scale = spec[4]
             if arr.dtype.is_floating_point:
-                f = red.sum(torch.where(use, arr.to(torch.float64), 0.0))
+                f = comb_sum(red.sum(
+                    torch.where(use, arr.to(torch.float64), 0.0)))
             else:
-                s = red.sum(torch.where(use, arr.to(torch.int64), 0))
+                s = comb_sum(red.sum(torch.where(use, arr.to(torch.int64),
+                                                 0)))
                 f = s.to(torch.float64)
             if scale:
                 f = f / (10.0 ** scale)
@@ -2257,25 +2395,29 @@ class _Interp:
             fill = float("-inf") if dt.is_floating_point else \
                 torch.iinfo(dt).min
         out = red.extreme(torch.where(use, arr, fill), fill, op == "min")
+        if comb is not None:
+            out = comb.pmin(out) if op == "min" else comb.pmax(out)
         return torch.where(cnt == 0, _nil_const(dt), out)
 
     @staticmethod
-    def _sum_slots(spec, arr, use, cnt, red):
+    def _sum_slots(spec, arr, use, cnt, red, comb_sum=lambda x: x):
         """sum / sum_distinct over the rows of ``use`` (nil for a segment
-        none contributes to); spec[5] asks for the wide (lo, hi) form."""
+        none contributes to); spec[5] asks for the wide (lo, hi) form.
+        ``comb_sum`` combines the partials of a mesh's shards."""
         acc_dt = _tdt(spec[4])
         vals = torch.where(use, arr.to(acc_dt), 0)
         if spec[5]:
             # exact int128-range accumulation via paired 32-bit limbs:
             # lo = sum of the low halves, hi = sum of the arithmetic
-            # high halves; exact total = hi*2^32 + lo
+            # high halves; both int64, both psum-combinable, exact
+            # total = hi*2^32 + lo
             v64 = vals.to(torch.int64)
-            lo = red.sum(v64 & 0xFFFFFFFF)
-            hi = red.sum(v64 >> 32)
+            lo = comb_sum(red.sum(v64 & 0xFFFFFFFF))
+            hi = comb_sum(red.sum(v64 >> 32))
             hi = hi + (lo >> 32)   # carry: lo into [0, 2^32)
             lo = lo & 0xFFFFFFFF
             return torch.where(cnt == 0, _I64_MIN_PY, lo), hi
-        out = red.sum(vals, acc_dt)
+        out = comb_sum(red.sum(vals, acc_dt))
         return torch.where(cnt == 0, _nil_const(acc_dt), out)
 
     def _agg_distinct(self, spec, arr, use, cap, red):
@@ -2704,7 +2846,8 @@ class _Interp:
 
 
 def _root_compact(itp, rel_ir, out_keys, out_cap):
-    """Run the plan and compact the result to out_cap."""
+    """Run the plan and compact the result to out_cap (shared by the
+    single-device and SPMD entry points)."""
     env, count, mask, cap = itp.rel(rel_ir)
     if mask is None:
         nlive = count
@@ -2713,7 +2856,8 @@ def _root_compact(itp, rel_ir, out_keys, out_cap):
         live = itp.live_of(cap, count, mask)
         oids, nlive, live_out = _compact_oids(live, out_cap)
         arrays = tuple(_gather_nil(env[k], oids, live_out) for k in out_keys)
-    return itp.err(), itp.exp_totals, nlive, arrays
+    err, tots = itp.combined_scalars()
+    return err, tots, nlive, arrays
 
 
 def _run_single(ir, inputs):
@@ -2763,12 +2907,282 @@ def _finish_slice(arrays, *, out_cap: int):
     return tuple(a[:out_cap] for a in arrays)
 
 
+# ---------------------------------------------------------------------------
+# SPMD execution over a row mesh - the reference's mitosis + mergetable
+# pipeline (opt_mitosis.c:21 slices every eligible plan across workers;
+# opt_mergetable.c:15-27 replicates operators per piece and two-phase-
+# combines aggregates; mat.c:124 packs the pieces).  Here: the largest
+# scanned tables are row-sharded over the mesh, the mask-carrying operator
+# pipeline runs shard-local, dense group-bys combine slot partials with
+# psum, and order/limit/distinct/build-side barriers all_gather.
+# ---------------------------------------------------------------------------
+
+
+def _ir_cap(ir, nsh: int, counts=None) -> int:
+    """Static per-shard row-count bound of a (rewritten) plan IR subtree -
+    mirrors the interpreter's cap propagation, tightened by actual scan
+    row counts when known; drives the repartition lane-capacity guess and
+    the broadcast-vs-shuffle cost pick (the role of the reference's
+    joincost row estimates, gdk/gdk_join.c:3586)."""
+    k = ir[0]
+    if k in ("scan", "scan_sharded"):
+        c = ir[3]
+        if counts is not None and ir[2] in counts:
+            c = min(c, max(counts[ir[2]], 1))
+        # sharded scans hold a row-range slice; live rows are a prefix of
+        # the capacity, so one shard holds at most min(cap/nsh, count)
+        return c if k == "scan" else max(min(ir[3] // nsh, c), 1)
+    if k in ("rename", "filter", "project", "orderby", "distinct"):
+        return _ir_cap(ir[1], nsh, counts)
+    if k == "compact":
+        return ir[2]
+    if k == "gather":
+        return _ir_cap(ir[1], nsh, counts) * nsh
+    if k == "repartition":
+        return ir[3] * nsh
+    if k == "limit":
+        return ir[4]
+    if k == "groupby_sort":
+        return ir[5]
+    if k in ("groupby_dense", "groupby_dense_spmd"):
+        return ir[7]
+    if k == "join":
+        return _ir_cap(ir[2], nsh, counts)
+    if k == "join_expand":
+        return ir[9]
+    raise Unsupported(f"spmd cap: {k}")
+
+
+def _ir_rows(ir, counts=None) -> int:
+    """Static GLOBAL row-count bound of a subtree (sums over shards -
+    differs from _ir_cap at sharded/gathered nodes)."""
+    k = ir[0]
+    if k in ("scan", "scan_sharded"):
+        c = ir[3]
+        if counts is not None and ir[2] in counts:
+            c = min(c, max(counts[ir[2]], 1))
+        return c
+    if k in ("rename", "filter", "project", "orderby", "distinct",
+             "gather", "repartition"):
+        return _ir_rows(ir[1], counts)
+    if k == "compact":
+        return min(_ir_rows(ir[1], counts), ir[2])
+    if k == "limit":
+        return ir[4]
+    if k == "groupby_sort":
+        return ir[5]
+    if k in ("groupby_dense", "groupby_dense_spmd"):
+        return ir[7]
+    if k == "join":
+        return _ir_rows(ir[2], counts)
+    if k == "join_expand":
+        return ir[9]
+    raise Unsupported(f"spmd rows: {k}")
+
+
+class _SpmdRewriter:
+    """Single-device plan IR -> mesh IR (the reference's mitosis +
+    mergetable pipeline as one pass; a copy of the reference's, so the
+    mesh IR of a query is the reference's too).  ``rw`` returns (ir',
+    dist) with dist in {"shard", "repl"}: whether the node's rows live
+    sharded over the mesh or replicated on every shard.
+
+    Distribution strategy per consumer of a sharded subtree:
+    * orderby/limit: all_gather barrier (mat.pack before the
+      order-sensitive consumer).
+    * join build sides: cost pick - small builds broadcast (all_gather);
+      large builds hash-repartition BOTH sides through the ragged
+      all-to-all exchange so each shard joins only the keys it owns.
+      This is the partitioned shuffle the reference lacks (its remote
+      joins ship whole columns to one site, modules/mal/remote.c:971
+      RMTput, design note remote.c:13-58).
+    * group-by/distinct: dense small domains psum slot partials
+      (two-phase, opt_mergetable.c:15-27); high-cardinality sorts and
+      distinct aggregates repartition by key hash so groups are wholly
+      shard-owned and every aggregate (incl. DISTINCT) runs local.
+    """
+
+    def __init__(self, sharded: frozenset, nsh: int,
+                 lane_caps: Dict[int, int], counts=None):
+        self.sharded = sharded
+        self.nsh = nsh
+        self.scan_rows = counts               # cnt input idx -> real rows
+        self.lane_caps = lane_caps            # ordinal -> lane cap override
+        self.lane_used: Dict[int, int] = {}   # ordinal -> lane cap used
+        self.counts = {"shuffle_joins": 0, "shuffle_groupbys": 0,
+                       "shuffle_distincts": 0}
+        self._ord = 0
+        self.bcast_rows = int(config.get("spmd_broadcast_rows"))
+        self.min_rows = int(config.get("spmd_shuffle_min_rows"))
+
+    def _repart(self, ir, keyspec):
+        """Wrap ir in a hash-repartition exchange node.  The lane
+        capacity starts at ~4x the uniform-hash mean and is corrected by
+        the host retry loop from the measured max lane (the engine-wide
+        count-then-allocate discipline)."""
+        o = self._ord
+        self._ord += 1
+        cap = _ir_cap(ir, self.nsh, self.scan_rows)
+        default = capacity_for(max(4 * cap // max(self.nsh, 1), 256))
+        lane = self.lane_caps.get(o, default)
+        self.lane_used[o] = lane
+        return ("repartition", ir, keyspec, int(lane), o)
+
+    def rw(self, ir):
+        k = ir[0]
+        if k == "scan":
+            if ir[1][0][1] in self.sharded:
+                return ("scan_sharded",) + ir[1:], "shard"
+            return ir, "repl"
+        if k == "rename":
+            c, d = self.rw(ir[1])
+            return ("rename", c, ir[2]), d
+        if k in ("filter", "project"):
+            c, d = self.rw(ir[1])
+            return (k, c) + ir[2:], d
+        if k == "compact":
+            # shard-local compaction: each shard packs its own live rows
+            c, d = self.rw(ir[1])
+            return (k, c) + ir[2:], d
+        if k in ("orderby", "limit"):
+            # global-order barriers: gather the shards first
+            c, d = self.rw(ir[1])
+            if d == "shard":
+                c = ("gather", c)
+            return (k, c) + ir[2:], "repl"
+        if k == "distinct":
+            c, d = self.rw(ir[1])
+            if d == "shard" and ir[2] and \
+                    _ir_cap(c, self.nsh, self.scan_rows) >= self.min_rows:
+                keys = tuple(e for e, _d, _n in ir[2])
+                c = self._repart(c, ("keys", keys))
+                self.counts["shuffle_distincts"] += 1
+                return ("distinct", c) + ir[2:], "shard"
+            if d == "shard":
+                c = ("gather", c)
+            return ("distinct", c) + ir[2:], "repl"
+        if k == "groupby_sort":
+            c, d = self.rw(ir[1])
+            if d == "shard" and ir[3] and \
+                    _ir_cap(c, self.nsh, self.scan_rows) >= self.min_rows:
+                # repartition by group-key hash: every group is wholly
+                # owned by one shard, so the sort-group and ALL its
+                # aggregates (incl. avg/distinct) run shard-local with
+                # no combine step
+                c = self._repart(c, ("keys", ir[3]))
+                self.counts["shuffle_groupbys"] += 1
+                return ("groupby_sort", c) + ir[2:], "shard"
+            if d == "shard":
+                c = ("gather", c)
+            return ("groupby_sort", c) + ir[2:], "repl"
+        if k == "groupby_dense":
+            c, d = self.rw(ir[1])
+            if d == "shard":
+                if ir[6] or any(spec[0].endswith("_distinct")
+                                for _key, spec in ir[5]):
+                    # FD-fetched keys need a shard-local representative
+                    # row per whole group, and distinct aggregates need
+                    # per-group global value sets: repartition by group
+                    # key when big enough, else gather
+                    if ir[3] and _ir_cap(c, self.nsh,
+                                         self.scan_rows) >= self.min_rows:
+                        keys = tuple(ci[1] for ci, _d, _dt in ir[3])
+                        c = self._repart(c, ("keys", keys))
+                        self.counts["shuffle_groupbys"] += 1
+                        return ("groupby_dense", c) + ir[2:], "shard"
+                    return ("groupby_dense", ("gather", c)) + ir[2:], \
+                        "repl"
+                return ("groupby_dense_spmd", c) + ir[2:], "repl"
+            return ("groupby_dense", c) + ir[2:], "repl"
+        if k in ("join", "join_expand"):
+            l, dl = self.rw(ir[2])
+            r, dr = self.rw(ir[3])
+            if dr == "shard":
+                bglobal = _ir_rows(r, self.scan_rows)
+                if dl == "shard" and bglobal > self.bcast_rows:
+                    # partitioned shuffle join: exchange both sides by
+                    # join-key hash, then join shard-locally
+                    keyspecs = ir[4]
+                    l = self._repart(l, ("join", keyspecs, "l"))
+                    r = self._repart(r, ("join", keyspecs, "r"))
+                    self.counts["shuffle_joins"] += 1
+                else:
+                    # broadcast join: every shard gets the full build
+                    r = ("gather", r)
+            return ir[:2] + (l, r) + ir[4:], dl
+        raise Unsupported(f"spmd rewrite: {k}")
+
+
+def _run_shard(ir, inputs, coll):
+    """One shard's whole plan + result compaction (the body the reference
+    shard_maps); its outputs are replicated by construction."""
+    rel_ir, out_keys, out_cap = ir
+    itp = _Interp(inputs, coll=coll, nsh=coll.size)
+    return _root_compact(itp, rel_ir, out_keys, out_cap)
+
+
+#: mesh callables by (IR bundle, mesh, input sharding, repcheck); guarded
+#: by _LOCK
+_SPMD_CACHE: Dict[tuple, object] = {}
+
+
+def _spmd_callable(ir_bundle, mesh, shard_flags: tuple,
+                   repcheck: bool = False):
+    """The plan as a function of the inputs over ``mesh``, cached by (IR,
+    mesh, input sharding, repcheck).  It returns shard 0's outputs (every
+    shard's are the same by construction), or with ``repcheck`` (config
+    assert_props, the GDKdebug analog) every shard's, so the caller can
+    assert replication at run time."""
+    key = (ir_bundle, mesh, shard_flags, repcheck)
+    with _LOCK:
+        fn = _SPMD_CACHE.get(key)
+    if fn is not None:
+        return fn
+
+    def fn(inputs):
+        outs = run_shards(mesh, lambda ins, coll: _run_shard(
+            ir_bundle, ins, coll), inputs, shard_flags)
+        return outs if repcheck else outs[0]
+
+    with _LOCK:
+        _SPMD_CACHE[key] = fn
+    return fn
+
+
 def _fetch_scalars(err, count, tots: Dict[int, torch.Tensor]):
     """The error code, the live count and the count-retry totals in ONE
     device->host copy (the reference's jax.device_get of the same)."""
     vals = torch.stack([x.to(torch.int64).reshape(())
                         for x in (err, count, *tots.values())]).tolist()
     return vals[0], vals[1], dict(zip(tots, vals[2:]))
+
+
+def _replicated_outputs(outs):
+    """(error code, count, totals, arrays) of per-shard outputs that must
+    be identical on every shard; raises AssertionError where a shard
+    diverges."""
+    fetched = []
+    for err, tots, count, arrays in outs:
+        code, n, tots_v = _fetch_scalars(err, count, tots)
+        fetched.append((code, n, tots_v, [a.cpu().numpy() for a in arrays]))
+    first = fetched[0]
+    for d, (code, n, tots_v, arrs) in enumerate(fetched[1:], 1):
+        what = None
+        if code != first[0]:
+            what = "error flag"
+        elif n != first[1]:
+            what = "row count"
+        elif tots_v != first[2]:
+            what = "count-retry totals"
+        else:
+            for i, (a, b) in enumerate(zip(arrs, first[3])):
+                if not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+                    what = f"output[{i}]"
+                    break
+        if what is not None:
+            raise AssertionError(f"SPMD replication violated: {what} "
+                                 f"diverges on shard {d}")
+    return first
 
 
 def _raise_err(code: int):
@@ -2810,6 +3224,7 @@ _DISK_MEMO: Dict[str, dict] = {}
 #: v2: an entry for a join with a non-unique build side now leads to the
 #: expanding plan; a v1 file was written when that plan could not run
 _MEMO_FILE = "mtpu_torch_expand_memo_v2.json"
+_MEMO_LOCK = threading.Lock()
 
 
 def _memo_path() -> Optional[str]:
@@ -2838,7 +3253,8 @@ def _memo_disk_get(plan_key) -> Optional[Dict[int, Optional[int]]]:
     path = _memo_path()
     if path is None:
         return None
-    d = _memo_file(path).get(_memo_digest(plan_key))
+    with _MEMO_LOCK:
+        d = _memo_file(path).get(_memo_digest(plan_key))
     if d is None:
         return None
     return {int(o): v for o, v in d.items()}
@@ -2849,15 +3265,17 @@ def _memo_disk_put(plan_key, expand: Dict[int, Optional[int]]) -> None:
     path = _memo_path()
     if path is None:
         return
-    memo = _memo_file(path)
-    memo[_memo_digest(plan_key)] = {str(o): v for o, v in expand.items()}
-    tmp = path + f".{os.getpid()}"
-    try:
-        with open(tmp, "w") as f:
-            json.dump(memo, f)
-        os.replace(tmp, path)
-    except OSError:
-        pass      # the memo is a cache: a read-only disk only costs retries
+    # sessions on several threads write here: one writer at a time
+    with _MEMO_LOCK:
+        memo = _memo_file(path)
+        memo[_memo_digest(plan_key)] = {str(o): v for o, v in expand.items()}
+        tmp = path + f".{os.getpid()}.{threading.get_ident()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(memo, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass  # the memo is a cache: a read-only disk only costs retries
 
 
 _LOCK = threading.Lock()
@@ -2868,7 +3286,11 @@ _LOCK = threading.Lock()
 #: on (the reference runs those through its executor) count apart, under
 #: ``subquery_runs``
 STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
-         "fallbacks": 0}
+         "fallbacks": 0, "spmd_runs": 0,
+         # SPMD plans that exchanged rows through the ragged all-to-all
+         # (hash-partitioned joins / group-bys / distincts) instead of
+         # broadcast-gathering - tests assert the shuffle path executed
+         "shuffle_joins": 0, "shuffle_groupbys": 0, "shuffle_distincts": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:
@@ -2922,8 +3344,11 @@ class CompiledFragment:
         self.wide = wide
         self.expand = expand
         self.expand_used = dict(low.expand_used)
+        self.group_caps = dict(low.group_caps)
         self.rel_ir = rel_ir
         self.inputs = tuple(low.inputs)
+        self.input_tables = list(low.input_tables)
+        self.scan_counts = dict(low.scan_counts)
         self.out_keys = tuple(out_keys)
         self.pts = pts
         self.cap = cap
@@ -2936,14 +3361,166 @@ class CompiledFragment:
             _JOIN_MEMO[self.plan_key] = dict(self.expand)
         _memo_disk_put(self.plan_key, dict(self.expand))
 
-    def run(self, events: Optional[list] = None,
-            stat: str = "runs") -> FragmentResult:
+    def _pick_shard_inputs(self, nsh: int,
+                           require_min: bool = False) -> Optional[frozenset]:
+        """Input indices of the tables to row-shard: every scanned table
+        large enough to split over the mesh (the reference shards every
+        eligible bind, opt_mitosis.c:21; small tables stay replicated
+        like its non-partitioned sides).  With an explicit mesh the
+        largest table is always sharded so even small-table plans
+        exercise the mesh; session auto-meshes set ``require_min`` so
+        plans with no table >= spmd_min_shard_rows stay single-device
+        (the reference's MIN_PART_SIZE gate, opt_mitosis.c:17)."""
+        caps: Dict[str, int] = {}
+        idxs: Dict[str, set] = {}
+        for i, tname in enumerate(self.input_tables):
+            if tname is None:
+                continue
+            caps[tname] = self.inputs[i].shape[0]
+            idxs.setdefault(tname, set()).add(i)
+        min_rows = int(config.get("spmd_min_shard_rows"))
+        best = None
+        chosen = set()
+        for tname, cap in caps.items():
+            if cap % nsh or cap < nsh:
+                continue
+            if best is None or cap > caps[best]:
+                best = tname
+            if cap >= min_rows:
+                chosen.add(tname)
+        if best is None or (require_min and not chosen):
+            return None
+        chosen.add(best)
+        return frozenset(i for t in chosen for i in idxs[t])
+
+    def _run_spmd(self, mesh, events: Optional[list], require_min: bool,
+                  stat: str) -> FragmentResult:
+        """Execute over a row mesh: SQL in, SPMD out.  The same retry
+        discipline as the single-device path (non-unique build discovery,
+        capacity overflow) applies, plus the repartition lane overflow.
+        One host read of the scalars per attempt, after every shard ran."""
+        if len(mesh.axis_names) != 1:
+            raise Unsupported("spmd fragment needs a 1-D mesh")
+        nsh = int(mesh.shape[mesh.axis_names[0]])
+        if nsh <= 1:
+            raise Unsupported("single-device mesh")
+        picked = self._pick_shard_inputs(nsh, require_min)
+        if picked is None:
+            raise Unsupported("no shardable scan for the mesh")
+        if require_min:
+            # auto-mesh cost gate: SPMD pays off when the plan *reduces*
+            # (group-by/top-n/selective join) - if the root result is on
+            # the order of the sharded input, the final all_gather ships
+            # ~everything to every shard and single-device wins (the
+            # gather cost the reference never pays: its mat.pack is a
+            # shared-memory concat, modules/mal/mat.c:124)
+            big = max(self.inputs[i].shape[0] for i in picked)
+            if self.cap * 2 > big:
+                raise Unsupported("result ~ input size: gather dominates")
+        from ..obs import set_algorithm
+        set_algorithm("fragment:spmd")
+        stats_inc(stat)
+        stats_inc("spmd_runs")
+        t0 = time.perf_counter()
+        rpcs = 0
+        lane_caps = getattr(self, "_lane_caps", None)
+        if lane_caps is None:
+            lane_caps = self._lane_caps = {}
+        for _attempt in range(12):
+            sharded = self._pick_shard_inputs(nsh, require_min)
+            if sharded is None:
+                raise Unsupported("no shardable scan for the mesh")
+            rwr = _SpmdRewriter(sharded, nsh, lane_caps, self.scan_counts)
+            sp_ir, d = rwr.rw(self.rel_ir)
+            if d == "shard":
+                sp_ir = ("gather", sp_ir)
+            flags = tuple(i in sharded for i in range(len(self.inputs)))
+            repcheck = bool(config.get("assert_props"))
+            fn = _spmd_callable((sp_ir, self.out_keys, self.cap), mesh,
+                                flags, repcheck=repcheck)
+            out = fn(self.inputs)
+            if repcheck:
+                # runtime replication assert (GDKdebug/assert_props):
+                # every shard must have produced identical outputs
+                code, n, tots_v, arrs = _replicated_outputs(out)
+            else:
+                err, tots, count, arrays = out
+                code, n, tots_v = _fetch_scalars(err, count, tots)
+                arrs = [a.cpu().numpy() for a in arrays]
+            rpcs += 1
+            if code >= _ERR_DUP_BASE:
+                expand = dict(self.expand)
+                expand[code - _ERR_DUP_BASE] = None
+                self._lower(expand)
+                self.expand = {**expand, **self.expand_used}
+                self._memoize()
+                stats_inc("uniq_retries")
+                continue
+            # negative keys = repartition max-lane counts (shuffle
+            # overflow); positive = compaction / group / expansion totals
+            lane_over = {(-1 - o): t for o, t in tots_v.items()
+                         if o < 0 and t > rwr.lane_used.get(-1 - o, 0)}
+            if lane_over:
+                for o, t in lane_over.items():
+                    lane_caps[o] = capacity_for(max(t, 1))
+                stats_inc("cap_retries")
+                continue
+            # a group-by without a retry channel (its capacity is at least
+            # its one-device bound) reports its group count all the same
+            # when the mesh hands it more row slots than that bound: a
+            # gather of shard-local compactions, each of which was checked
+            # on its own shard.  A count above its capacity lost rows that
+            # no re-lowering can hold, so the plan runs on one device; a
+            # count that fits a smaller bucket is retried at that bucket,
+            # as the reference retries it (which may give it a channel);
+            # any other count lost nothing.  (The reference compares such
+            # a count with 0, so it retries until its attempts run out.)
+            free = {o: t for o, t in tots_v.items()
+                    if o >= 0 and o not in self.expand_used}
+            if any(t > self.group_caps.get(o, 0) for o, t in free.items()):
+                raise Unsupported("group count above its bound on the mesh")
+            over = {o: t for o, t in tots_v.items()
+                    if o in self.expand_used and t > self.expand_used[o]}
+            over.update((o, t) for o, t in free.items()
+                        if capacity_for(max(t, 1)) < self.group_caps.get(o, 0))
+            if over:
+                expand = dict(self.expand)
+                for o, t in over.items():
+                    expand[o] = capacity_for(max(t, 1))
+                self._lower(expand)
+                self._memoize()
+                stats_inc("cap_retries")
+                continue
+            _raise_err(code)
+            for key, v in rwr.counts.items():
+                if v:
+                    stats_inc(key, v)
+            if events is not None:
+                events.append({
+                    "op": "fragment.run", "algorithm": "fragment:spmd",
+                    "rows": n, "rpcs": rpcs, "devices": nsh,
+                    "shuffles": dict(rwr.counts),
+                    "usec": int((time.perf_counter() - t0) * 1e6)})
+            return FragmentResult(n, arrs, self.pts, self.wide)
+        raise Unsupported("expanding-join retry limit exceeded")
+
+    def run(self, events: Optional[list] = None, stat: str = "runs",
+            mesh=None, spmd_require_min: bool = False) -> FragmentResult:
         """Execute on the device of the inputs.  One host read of the
         error code, count and totals per attempt, plus one re-lowered
         retry per newly discovered compaction / group-bucket overflow
         (memoized across runs); results larger than _SINGLE_PHASE_CAP are
         compacted to a tight capacity after the count is known.  ``stat``
-        is the STATS key the run counts under."""
+        is the STATS key the run counts under.  With a row mesh (more than
+        one shard) the plan runs SPMD (see _run_spmd); a plan the mesh
+        path rejects runs on one device.  ``spmd_require_min`` (session
+        auto-mesh) keeps plans whose largest scan is below
+        spmd_min_shard_rows on one device."""
+        if mesh is not None:
+            try:
+                return self._run_spmd(mesh, events, spmd_require_min, stat)
+            except Unsupported:
+                pass    # e.g. tiny/unshardable plan: run single-device
         from ..obs import set_algorithm
         set_algorithm("fragment:jit")
         stats_inc(stat)

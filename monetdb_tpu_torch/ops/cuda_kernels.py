@@ -76,6 +76,7 @@ _SIGNATURES = {
 
 _fns = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 _sm_count = {}          # device index -> multiprocessor count
 #: ptxas register/shared-memory report of the last build in this process
 BUILD_LOG = ""
@@ -181,7 +182,9 @@ def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA "
                            f"error {rc}")
-    LAUNCHES[name] += 1
+    # the shards of a row mesh launch from threads of their own
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _on_cpu(*tensors) -> bool:

@@ -6,7 +6,9 @@ they lower to Database.insert/update/delete on storage oids selected by the
 same query machinery).
 
 Queries run through ``Engine`` on the device the session's ``Database``
-was opened with; the port runs on one device (no SPMD mesh)."""
+was opened with, and SPMD over the session's row mesh where it has one
+(``mesh=``, or ``parallel.default_mesh()`` for a store on a CUDA device:
+every visible card when there are more than one)."""
 
 from __future__ import annotations
 
@@ -45,8 +47,17 @@ def _open_maybe_compressed(path: str):
 
 
 class Session:
-    def __init__(self, db: Database, user: Optional[str] = None):
+    def __init__(self, db: Database, user: Optional[str] = None,
+                 mesh=None):
         self.db = db
+        # row mesh for SPMD plan execution: explicit, or the process
+        # default over the visible cards - mitosis sits in every session's
+        # default_pipe (opt_pipes.c:76); config spmd_auto_mesh=0 disables
+        if mesh is None and getattr(getattr(db, "device", None), "type",
+                                    None) == "cuda":
+            from .parallel import default_mesh
+            mesh = default_mesh()
+        self.mesh = mesh
         # authenticated user; None = embedded/admin session (the reference
         # gives monetdbe the admin role the same way)
         self.user = user
@@ -106,8 +117,9 @@ class Session:
         return cat
 
     def _engine(self) -> Engine:
-        """An Engine over the session-visible catalog."""
-        return Engine(self._catalog())
+        """An Engine over the session-visible catalog, sharing the
+        session mesh so eligible plans run SPMD (mitosis-by-default)."""
+        return Engine(self._catalog(), mesh=self.mesh, spmd_auto=True)
 
     def _check_priv(self, table: str, priv: str) -> None:
         """Table privilege enforcement (sql_privileges.c table_privs)."""
@@ -1374,7 +1386,8 @@ class Prepared:
         stmt = copy.deepcopy(self.stmt_template)
         _substitute_params(stmt, list(params))
         if isinstance(stmt, A.SelectStmt):
-            return Engine(self.session.db.catalog()).query_stmt(stmt)
+            return Engine(self.session.db.catalog(), mesh=self.session.mesh,
+                          spmd_auto=True).query_stmt(stmt)
         # prepared DML (the reference prepares any statement kind)
         if isinstance(stmt, A.InsertValues):
             return self.session._insert_values(stmt)

@@ -1119,3 +1119,78 @@ def test_external_ops_on_gpu(cuda_device):
     want = c[1:] - c[np.maximum(np.arange(len(small)) - 999, 0)]
     assert np.array_equal(streaming_window_sum(small, 1000,
                                                chunk_rows=1 << 17), want)
+
+
+# ---------------------------------------------------------------------------
+# the row mesh on the card: 8 shards of one GPU, one thread each
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_seg_sum64_launch_count_from_8_threads(cuda_device):
+    """8 threads x N launches count exactly 8N, and every sum is right."""
+    import threading
+    n = 200
+    sid = torch.arange(4096, device=cuda_device) % 12
+    vals = torch.arange(4096, device=cuda_device, dtype=torch.int64)
+    want = CK.seg_sum64_plain(sid, vals, domain=12)
+    bad = []
+    before = CK.LAUNCHES["seg_sum64"]
+
+    def work():
+        for _ in range(n):
+            got = CK.seg_sum64(sid, vals, domain=12)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                bad.append(got)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["seg_sum64"] - before == 8 * n and not bad
+
+
+@pytest.mark.cuda
+def test_sharded_q1_launches_the_kernel_once_per_shard(cuda_device):
+    from monetdb_tpu_torch.parallel import row_mesh, shard_array, sharded_q1
+    mesh = row_mesh([cuda_device] * 8)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n = 100_003
+    cols = [torch.randint(lo, hi, (n,), generator=g, device=cuda_device,
+                          dtype=torch.int32)
+            for lo, hi in ((-1, 8), (8000, 10600), (100, 5100),
+                           (9000, 2_000_000), (0, 11), (0, 9))]
+    before = CK.LAUNCHES["q1_grouped_sums"]
+    got = sharded_q1(mesh)(*[shard_array(c, mesh, fill=-1 if i == 0 else 0)
+                             for i, c in enumerate(cols)], 10_471)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["q1_grouped_sums"] - before == 8
+    want = CK.q1_grouped_sums_plain(*cols, 10_471, domain=8)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3, 6, 13, 18])
+def test_mesh_engine_on_gpu_matches_cpu(cuda_device, q):
+    """TPC-H on row_mesh([cuda] * 8) against the one-device CPU engine."""
+    from monetdb_tpu_torch.bench.tpch_load import load_tpch
+    from monetdb_tpu_torch.bench.tpch_queries import QUERIES
+    from monetdb_tpu_torch.engine import Engine
+    from monetdb_tpu_torch.exec import fragment as TF
+    from monetdb_tpu_torch.parallel import row_mesh
+    mesh = row_mesh([cuda_device] * 8)
+    s0 = TF.STATS["spmd_runs"]
+    got = Engine(load_tpch(0.01, device=cuda_device),
+                 mesh=mesh).query(QUERIES[q]).rows
+    assert TF.STATS["spmd_runs"] > s0
+    want = Engine(load_tpch(0.01, device="cpu")).query(QUERIES[q]).rows
+    assert len(got) == len(want)
+    for gr, wr in zip(got, want):
+        for x, y in zip(gr, wr):
+            assert x == (pytest.approx(y, rel=1e-9)
+                         if isinstance(y, float) else y)

@@ -217,7 +217,7 @@ def test_run_time_rejection_falls_back(exec_engines, monkeypatch):
     sql = "select g, count(*) as n from t group by g order by g"
     want = list(eng.query(sql).rows)
 
-    def refuse(self, events=None):
+    def refuse(self, events=None, **_mesh_args):
         raise TF.Unsupported("refused at run time")
     monkeypatch.setattr(TF.CompiledFragment, "run", refuse)
     f0 = TF.STATS["fallbacks"]

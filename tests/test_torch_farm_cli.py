@@ -544,7 +544,12 @@ PORT_EXPECTED = {
                                  "qgram_normalize", "like_cand"],
     "monetdb_tpu_torch.ops.jsonfuncs": ["isvalid", "filter_path", "text",
                                   "length", "keyarray", "valuearray"],
-    # parallel.shuffle and parallel.mitosis come with the multi-GPU slice
+    "monetdb_tpu_torch.parallel.shuffle": [
+        "hash64", "lane_counts", "shuffle", "dist_group_sum",
+        "dist_group_sum_auto", "dist_fk_join"],
+    "monetdb_tpu_torch.parallel.mitosis": [
+        "row_mesh", "shard_array", "two_phase_sum", "sharded_q1",
+        "sharded_q6", "default_mesh", "AXIS"],
     "monetdb_tpu_torch.obs": ["PROFILER", "set_algorithm"],
 }
 

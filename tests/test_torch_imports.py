@@ -38,6 +38,12 @@ def test_import_pulls_in_no_jax():
         "from monetdb_tpu_torch.storage import csv_native, database, wal\n"
         "from monetdb_tpu_torch import cli, farm, server\n"
         "from monetdb_tpu_torch.ops import external, geom\n"
+        "from monetdb_tpu_torch import parallel\n"
+        "from monetdb_tpu_torch.parallel import mesh, mitosis, shuffle\n"
+        "from monetdb_tpu_torch.bench import kernels\n"
+        "m = parallel.row_mesh(['cpu'] * 2)\n"
+        "t = parallel.shard_array(__import__('numpy').arange(5), m)\n"
+        "assert int(shuffle.lane_counts(m, t, t >= 0).sum()) == 6\n"
         "s = session.Session(database.Database(device='cpu'))\n"
         "s.sql('create table t (a int)')\n"
         "s.sql('create sequence q as integer start with 2')\n"
