@@ -106,7 +106,26 @@ Phases, one or more output lines each, and a line with each phase's time:
              Q1 sums, with 8 q1_grouped_sums launches a call; ``lane_counts``,
              ``dist_group_sum``, ``dist_group_sum_auto`` and ``dist_fk_join``
              over 2^23 int64 rows, uniform and Zipf(2) keys, equal to numpy.
-14. durable - a store on local disk under $TMPDIR at SF1: the eight tables
+14. procs  - the process mesh (parallel/dist.py): 2 ranks, each a process
+             of its own on the one card, joined by gloo with every
+             collective staged through host memory (NCCL refuses two ranks
+             on one card); bench/mesh_procs.py: each rank makes the same
+             2^24 int64 rows (keys uniform in [0, 2^20) and Zipf(2), 5%
+             dead rows) and 24,000,000 Q1 / Q6 rows (the kernel phase's
+             ranges) from one seed and runs two_phase_sum, sharded_q6 and
+             sharded_q1 (int32 and int64 columns), lane_counts, shuffle,
+             dist_group_sum, dist_group_sum_auto and dist_fk_join: its
+             piece of each exact against numpy, and bit-equal to the same
+             shard of ``row_mesh([cuda:0] * 2)`` run here afterwards; 6
+             seg_sum64 and 1 q1_grouped_sums launches a rank.  Prints warm
+             walls of both meshes, collectives and bytes a rank.  Then a
+             failure drill: one rank raises after a collective and every
+             rank must exit non-zero.
+15. harness - monetdb_tpu_torch/harness.py: ``entry()`` on the card equal
+             to the CPU, ``dryrun_multichip(8)`` on ``[cuda:0] * 8`` (the
+             22 queries at SF0.002 against one device, sharded_q1 / q6,
+             the shuffles; it raises on a failed check).
+16. durable - a store on local disk under $TMPDIR at SF1: the eight tables
              made by SQL DDL, loaded by COPY BINARY (one .npy per numeric
              column, one text file per string column) and ``orders`` by
              COPY INTO from a CSV through the native parser; checkpoint;
@@ -124,19 +143,19 @@ Phases, one or more output lines each, and a line with each phase's time:
              card: the 22 queries through its proxy (oracle over the
              changed arrays), status, stop (must checkpoint), snapshot,
              restore as ``db2`` and a ``Funnel`` counting lineitem in both.
-15. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
+17. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
              (tests/sqllogic/ref, held to REF_LEDGER.md with the ledger
              generator's CHAINS) through ``SqlLogicRunner(Session(
              Database()))`` on the card: every pass file passes, every
              known-fail fails.
-16. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
+18. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
              polygon (64 vertices with a hole; a multipolygon), distance
              sums to a polygon, multipolygon, linestring and point,
              geographic DWithin, coordinate sums, st_area over 1,000
              polygons: counts exactly and floats to rel 1e-9 against numpy
              (even-odd ray cast, segment distance, haversine, shoelace);
              peak device memory per query.
-17. external - ``external_sort`` of 2^27 seeded int64 (ascending,
+19. external - ``external_sort`` of 2^27 seeded int64 (ascending,
              descending) and of 2^26 values that are 90% one value, in
              tiles of 2^24 rows; ``streaming_cumsum`` and
              ``streaming_window_sum(w=1000)`` over the 2^27 values: equal
@@ -144,9 +163,11 @@ Phases, one or more output lines each, and a line with each phase's time:
              reference's 1B-row envelope is cut to 2^27 rows for time.
 
 The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12,
-13 (before its SQL, then again before the sharded kernel steps) and 14
+13 (before its SQL, then again before the sharded kernel steps) and 16
 (before its replayed queries, then again before the farm's) and read just
-after each.  Then one JSON line with each kernel's launches
+after each; in phase 14 each rank sets its own to 0 just before its pass
+over the primitives and reads them just after, and the ranks' counts are
+summed.  Then one JSON line with each kernel's launches
 on its path, error, times and bound, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero without that line.
@@ -174,7 +195,8 @@ import warnings
 import numpy as np
 import torch
 
-from monetdb_tpu_torch import config
+from monetdb_tpu_torch import config, harness
+from monetdb_tpu_torch.bench import mesh_procs as MP
 from monetdb_tpu_torch.bench import tpcds, tpch_oracle
 from monetdb_tpu_torch.bench.tpch_gen import SCHEMA, gen_tpch
 from monetdb_tpu_torch.bench.tpch_load import load_tpch, load_tpch_db
@@ -1119,16 +1141,6 @@ _SPMD_COUNTS = ("runs", "spmd_runs", "shuffle_joins", "shuffle_groupbys",
                 "shuffle_distincts", "cap_retries")
 
 
-def _np_hash64(keys: np.ndarray) -> np.ndarray:
-    """numpy's own splitmix avalanche (parallel/shuffle.py hash64):
-    int64 multiplies wrap, >> is arithmetic."""
-    with np.errstate(over="ignore"):
-        h = keys.astype(np.int64) * np.int64(-7046029254386353131)
-        h = h ^ (h >> np.int64(31))
-        h = h * np.int64(-4417276706812531889)
-        return (h ^ (h >> np.int64(33))) & np.int64(0x3FFF_FFFF_FFFF_FFFF)
-
-
 def _np_group_sums(k: np.ndarray, v: np.ndarray) -> dict:
     order = np.argsort(k, kind="stable")
     ks, vs = k[order], v[order]
@@ -1381,7 +1393,7 @@ def _spmd_shuffles(dev, mesh) -> None:
         k_np = keys.cpu().numpy()
         t0 = time.perf_counter()
         counts = SH.lane_counts(mesh, keys, live)
-        dest = _np_hash64(k_np) % d
+        dest = MP.np_hash64(k_np) % d
         want_counts = np.stack([
             np.bincount(dest[r * n // d:(r + 1) * n // d][
                 lv_np[r * n // d:(r + 1) * n // d]], minlength=d)
@@ -1425,6 +1437,66 @@ def _spmd_shuffles(dev, mesh) -> None:
     _log(f"spmd: dist_fk_join of {n} probe rows against {nr} keys (lane "
          f"{cap}) equal to numpy ({int(m.sum())} matches), "
          f"{time.perf_counter() - t0:.2f} s")
+
+
+#: the procs phase: PROCS_RANKS ranks on the one card over host-staged gloo
+#: (NCCL refuses two ranks on one card), 2^24 int64 rows globally, the
+#: kernel phase's 24,000,000 Q1 / Q6 rows, PROCS_WARM timed runs a primitive
+PROCS_RANKS = 2
+PROCS_ROWS_LOG2 = 24
+PROCS_WARM = 2
+#: per rank, one pass over the primitives: two_phase_sum (1) and the int64
+#: sharded_q1 (one a measure, 5) launch seg_sum64, the int32 sharded_q1
+#: launches q1_grouped_sums once
+PROCS_LAUNCHES = {"seg_sum64": 6, "q1_grouped_sums": 1,
+                  "grouped_sum_limbs": 0}
+
+
+def phase_procs(dev, seg: dict, q1: dict, gsl: dict) -> None:
+    """The process mesh (monetdb_tpu_torch/parallel/dist.py): PROCS_RANKS
+    ranks, each a process of its own on the one card, host-staged gloo
+    between them, run the parallel primitives
+    (monetdb_tpu_torch/bench/mesh_procs.py); every rank's output exact
+    against numpy (in the rank) and against the shard of the same rank of
+    ``row_mesh([cuda:0] * PROCS_RANKS)`` (here).  The ranks' kernel
+    launches of the checked run add up into the kernels line."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = MP.compare([str(dev)] * PROCS_RANKS, "gloo", PROCS_ROWS_LOG2,
+                     FUSED_NS[0], warm=PROCS_WARM)
+    want = {k: v * PROCS_RANKS for k, v in PROCS_LAUNCHES.items()}
+    if res["launches"] != want:
+        raise AssertionError(f"procs launches {res['launches_per_rank']}, "
+                             f"expected {PROCS_LAUNCHES} a rank")
+    seg["launches_procs"] = res["launches"]["seg_sum64"]
+    q1["launches_procs"] = res["launches"]["q1_grouped_sums"]
+    gsl["launches_procs"] = res["launches"]["grouped_sum_limbs"]
+    _log(f"procs: {PROCS_RANKS} ranks, {res['mesh']} (host-staged gloo "
+         f"collectives between the ranks' processes on {dev}), "
+         f"{res['rows']} int64 rows and {res['fused_rows']} Q1 / Q6 rows; "
+         f"ranks ran {res['procs_s']:.2f} s ({res['rank_seconds']}); lane "
+         f"capacities {res['caps']}; launches a rank "
+         f"{res['launches_per_rank'][0]}")
+    MP.report(res)
+    took = MP.fail_drill([str(dev)] * PROCS_RANKS, "gloo", 30.0)
+    _log(f"procs: failure drill: rank {PROCS_RANKS - 1} raised after one "
+         f"collective; every rank exited non-zero within {took:.2f} s")
+
+
+def phase_harness(dev) -> None:
+    """monetdb_tpu_torch/harness.py on the card: ``entry()``'s Q1 step
+    equal to the same step over the same columns on the CPU, and
+    ``dryrun_multichip(8)`` (it raises on a failed check)."""
+    fn, args = harness.entry()
+    got = fn(*args)
+    want = fn(*[a.cpu() for a in args])
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("harness.entry() on the card != on the CPU")
+    stats = harness.dryrun_multichip(8)
+    _log(f"harness: entry() equal to its CPU run; dryrun_multichip(8) on "
+         f"{dev} passed: spmd_runs {stats['spmd_runs']}, shuffle joins / "
+         f"group-bys / distincts {stats['shuffle_joins']} / "
+         f"{stats['shuffle_groupbys']} / {stats['shuffle_distincts']}")
 
 
 #: clients that run the 22 queries at once in phase_server
@@ -2357,6 +2429,8 @@ def main(argv) -> int:
     del db
     gc.collect()
     torch.cuda.empty_cache()
+    _timed("procs", phase_procs, dev, seg, q1, gsl)
+    _timed("harness", phase_harness, dev)
     _timed("durable + farm", phase_durable, dev, data, seg)
     _timed("sqllogic", phase_sqllogic, dev)
     _timed("geom", phase_geom, dev)

@@ -1,6 +1,7 @@
 """The 22 TPC-H queries through ``Session.sql`` on one card and on the row
-mesh that a host with several cards gives every session by default
-(``parallel.default_mesh()``: one shard per visible card), over one store:
+mesh that a host with several cards gives every session when config
+``spmd_auto_mesh`` is on (``parallel.default_mesh()``: one shard per
+visible card; the reference's default, off in the port), over one store:
 warm medians side by side, the mesh's rows held equal to the one-card rows,
 mesh runs and shuffles counted.
 
@@ -45,7 +46,7 @@ def _log(*a) -> None:
     print(*a, flush=True)
 
 
-def _dispatch_cost(devices) -> dict:
+def dispatch_cost(devices) -> dict:
     """Host microseconds an eager op takes when one thread issues 2,000 of
     them on the first card, and when one thread per card issues 2,000 at
     once on its own card (wall over all ops)."""
@@ -162,17 +163,17 @@ def main(argv) -> int:
     data = gen_tpch(args.sf)
     db = load_tpch_db(args.sf, data=data, device=dev)
     result["load_s"] = time.perf_counter() - t0
-    config.set("spmd_auto_mesh", False)
+    one = Session(db)                   # the port's default: one card
+    config.set("spmd_auto_mesh", True)
     try:
-        one = Session(db)
+        meshed = Session(db)            # the reference's default
     finally:
         config.reset("spmd_auto_mesh")
-    meshed = Session(db)                # the default on this host
     if one.mesh is not None or meshed.mesh is None or \
             meshed.mesh.size != n_cards:
         raise AssertionError(f"sessions' meshes: {one.mesh}, {meshed.mesh}")
     result["mesh"] = repr(meshed.mesh)
-    result["dispatch_us"] = _dispatch_cost(devices)
+    result["dispatch_us"] = dispatch_cost(devices)
     _log(f"mesh_cards: SF{args.sf} loaded in {result['load_s']:.2f} s; "
          f"default mesh {meshed.mesh}; host cost per eager op "
          f"{result['dispatch_us']}")

@@ -27,9 +27,11 @@ _defaults: Dict[str, Any] = {
     "radix_bits": 8,
     # --- SPMD plan distribution over a row mesh (parallel/, the fragment's
     # _run_spmd) ----------------------------------------------------------
-    # when >1 CUDA device is visible, sessions construct a row mesh and run
-    # eligible plans SPMD by default; set 0 to force single-device execution
-    "spmd_auto_mesh": True,
+    # when on and >1 CUDA device is visible, sessions construct a row mesh
+    # and run eligible plans SPMD.  On in the reference; off in the port:
+    # the thread mesh over four H100s was a median 9.96x slower than one
+    # card (bench/mesh_cards.py).  Session(db, mesh=...) still shards.
+    "spmd_auto_mesh": False,
     # tables at or above this many rows (capacity) are row-sharded over
     # the mesh; smaller ones stay replicated
     "spmd_min_shard_rows": 1 << 16,

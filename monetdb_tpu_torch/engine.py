@@ -25,6 +25,7 @@ from .dtypes import Kind, SQLType
 from . import config
 from .exec.executor import ExecError, Executor
 from .exec.fragment import CompiledFragment, Unsupported, stats_inc
+from .parallel.mesh import RowMesh
 from .sql.binder import bind_select
 from .table import Catalog
 
@@ -244,6 +245,10 @@ class Engine:
     per shard (exec/fragment.py _run_spmd)."""
 
     def __init__(self, catalog: Catalog, mesh=None, spmd_auto=False):
+        if mesh is not None and not isinstance(mesh, RowMesh):
+            # the SPMD path reads every shard's outputs in one process
+            raise TypeError(f"Engine takes a thread mesh (parallel."
+                            f"row_mesh), not {mesh!r}")
         self.catalog = catalog
         self.mesh = mesh
         # spmd_auto: the mesh came from the session default (mitosis in

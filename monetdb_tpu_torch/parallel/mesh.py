@@ -1,35 +1,51 @@
-"""A 1-D row mesh of shards, one Python thread per shard, in one process.
+"""A 1-D row mesh of shards: threads in one process, or one rank per process.
 
 The counterpart of ``jax.sharding.Mesh`` + ``shard_map`` + the ``lax``
 collectives the reference package uses (``psum``, ``pmax``, ``pmin``,
-``all_gather``, ``all_to_all``, ``axis_index``).  One process holds the
-whole mesh, as one JAX process holds its mesh: ``Engine(cat, mesh=...)``
-and ``Session(db, mesh=...)`` keep their single-controller API.  A mesh's
-devices may repeat (``[cuda:0] * 8`` runs eight shards on one card, and
-``["cpu"] * 8`` is the CPU tests' stand-in for the reference's eight
-virtual devices).
+``all_gather``, ``all_to_all``, ``axis_index``).  A mesh is one of two
+kinds:
 
-``run_shards(mesh, fn, inputs, shard_flags)`` splits the row-sharded
-inputs (views of one tensor where a shard shares its device, copies
-otherwise), passes the replicated ones through (copied to a shard on
-another device), runs ``fn(shard_inputs, coll)`` once per shard on a thread
-of its own and returns the per-shard outputs in rank order.
+* ``RowMesh`` (here): one process holds the whole mesh, one Python thread
+  per shard, as one JAX process holds its mesh.  ``Engine(cat, mesh=...)``
+  and ``Session(db, mesh=...)`` keep their single-controller API.  A
+  mesh's devices may repeat (``[cuda:0] * 8`` runs eight shards on one
+  card, and ``["cpu"] * 8`` is the CPU tests' stand-in for the reference's
+  eight virtual devices).
+* ``dist.ProcessMesh`` (``parallel/dist.py``): one shard per process, one
+  process per card, the collectives through ``torch.distributed`` (NCCL
+  between cards, gloo on the CPU), as under ``jax.distributed``.  A
+  process sees only its own shard, as a JAX process sees only its
+  addressable shards.
+
+``run_shards(mesh, fn, inputs, shard_flags)`` runs ``fn(shard_inputs,
+coll)`` once per shard and returns the per-shard outputs in rank order.  On
+a ``RowMesh`` it splits the row-sharded inputs (views of one tensor where a
+shard shares its device, copies otherwise), passes the replicated ones
+through (copied to a shard on another device) and runs each shard on a
+thread of its own.  On a ``ProcessMesh`` it runs this process's shard
+inline: every input is already this rank's (its rows of a sharded input,
+the whole of a replicated one) and is only moved to the rank's device; the
+result is a one-element list.
 
 ``coll`` (``Collectives``) gives a shard its ``rank`` and the collectives.
-Each takes one tensor or a list / tuple of tensors (one barrier for the
+Each takes one tensor or a list / tuple of tensors (one exchange for the
 whole list) and returns the same structure.  Every collective combines in
 rank order and every shard computes the combination itself, so replicated
-outputs are bit-equal across shards (what ``assert_props`` checks).
-Collective inputs are shared by reference: a shard must not write into a
-tensor after handing it to a collective.
+outputs are bit-equal across shards (what ``assert_props`` checks), and
+bit-equal between the two kinds of mesh.  Collective inputs of a thread
+mesh are shared by reference: a shard must not write into a tensor after
+handing it to a collective.
 
-A shard that raises aborts the barrier: the other shards stop at their next
-collective, and the caller gets the first exception that is not a broken
-barrier.  A barrier that waits longer than ``BARRIER_TIMEOUT_S`` breaks as
-well, so a deadlock fails the call instead of hanging it.
+On a ``RowMesh`` a shard that raises aborts the barrier: the other shards
+stop at their next collective, and the caller gets the first exception that
+is not a broken barrier.  A barrier that waits longer than
+``BARRIER_TIMEOUT_S`` breaks as well, so a deadlock fails the call instead
+of hanging it.  (A ``ProcessMesh`` gives ``torch.distributed`` the same
+timeout; see ``dist.py``.)
 
-``STATS`` counts, over all mesh calls, the calls, the collectives of one
-shard and the bytes all shards handed to collectives.
+``STATS`` counts, over all mesh calls of this process, the calls, the
+collectives of one shard and the bytes this process's shards handed to
+collectives.
 """
 
 from __future__ import annotations
@@ -40,7 +56,7 @@ from typing import Callable, List, Sequence
 import torch
 
 __all__ = ["AXIS", "RowMesh", "Collectives", "MeshError", "run_shards",
-           "BARRIER_TIMEOUT_S", "STATS"]
+           "home_device", "BARRIER_TIMEOUT_S", "STATS"]
 
 AXIS = "rows"
 
@@ -49,14 +65,16 @@ AXIS = "rows"
 BARRIER_TIMEOUT_S = 120.0
 
 #: mesh calls, collectives (of one shard) and bytes handed to collectives
-#: (by all shards) since the process started; guarded by _STATS_LOCK
+#: (by all of this process's shards) since the process started; guarded by
+#: _STATS_LOCK
 STATS = {"calls": 0, "collectives": 0, "bytes": 0}
 _STATS_LOCK = threading.Lock()
 
 
 class MeshError(RuntimeError):
     """A mesh call broke down without a shard raising an error of its own
-    (a collective timed out)."""
+    (a collective timed out, or the shards handed one collective tensors of
+    different shapes)."""
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -120,25 +138,29 @@ def _tree(x):
 
 
 class Collectives:
-    """The collectives of one shard of a mesh call (see module docstring)."""
+    """The collectives of one shard of a mesh call (see module docstring).
+    A kind of mesh supplies ``_swap``; the counting and the rank-order
+    combinations are shared."""
 
-    def __init__(self, group: _Group, rank: int, device: torch.device):
-        self._group = group
-        self._gen = 0
+    def __init__(self, rank: int, size: int, device: torch.device):
+        self._gen = 0                   # collectives so far
         self.sent = 0                   # bytes handed to collectives
         self.rank = rank
-        self.size = group.n
+        self.size = size
         self.device = device
 
-    def _exchange(self, xs: list) -> List[list]:
-        """Deposit ``xs``, wait for every shard, return every shard's
-        deposit in rank order."""
-        row = self._group.slots[self._gen % 2]
+    def _swap(self, xs: list) -> List[list]:
+        """Every shard's ``xs`` in rank order, on this shard's device or
+        shared by reference (one exchange; the kind of mesh's own)."""
+        raise NotImplementedError
+
+    def _note(self, xs: list) -> None:
         self._gen += 1
         self.sent += sum(t.numel() * t.element_size() for t in xs)
-        row[self.rank] = xs
-        self._group.barrier.wait()
-        return list(row)
+
+    def _exchange(self, xs: list) -> List[list]:
+        self._note(xs)
+        return self._swap(xs)
 
     def _here(self, t: torch.Tensor) -> torch.Tensor:
         return t if t.device == self.device else t.to(self.device)
@@ -190,6 +212,21 @@ class Collectives:
         return rebuild(out)
 
 
+class _ThreadCollectives(Collectives):
+    """A shard of a ``RowMesh`` call: a deposit in the shared slots and one
+    barrier."""
+
+    def __init__(self, group: _Group, rank: int, device: torch.device):
+        super().__init__(rank, group.n, device)
+        self._group = group
+
+    def _swap(self, xs: list) -> List[list]:
+        row = self._group.slots[(self._gen - 1) % 2]
+        row[self.rank] = xs
+        self._group.barrier.wait()
+        return list(row)
+
+
 def _split(t: torch.Tensor, n: int, devices) -> list:
     if t.dim() == 0 or t.shape[0] % n:
         raise ValueError(f"a row-sharded input of shape {tuple(t.shape)} "
@@ -199,12 +236,46 @@ def _split(t: torch.Tensor, n: int, devices) -> list:
             else t[r * k:(r + 1) * k].to(devices[r]) for r in range(n)]
 
 
-def run_shards(mesh: RowMesh, fn: Callable, inputs: Sequence[torch.Tensor],
+def home_device(mesh) -> torch.device:
+    """Where a row-sharded tensor of ``mesh`` lives: a thread mesh's first
+    device (every shard reads its slice), a process mesh's rank device
+    (the rank's rows only)."""
+    return mesh.devices[0] if isinstance(mesh, RowMesh) else mesh.device
+
+
+def _count(colls) -> None:
+    with _STATS_LOCK:
+        STATS["calls"] += 1
+        STATS["collectives"] += colls[0]._gen
+        STATS["bytes"] += sum(c.sent for c in colls)
+
+
+def _run_here(mesh, fn: Callable, inputs: Sequence[torch.Tensor]) -> list:
+    """This process's shard of a process mesh, on the caller's thread."""
+    dev = mesh.device
+    coll = mesh.collectives()
+    ins = [t if t.device == dev else t.to(dev) for t in inputs]
+    try:
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                return [fn(ins, coll)]
+        return [fn(ins, coll)]
+    finally:
+        _count([coll])
+
+
+def run_shards(mesh, fn: Callable, inputs: Sequence[torch.Tensor],
                shard_flags: Sequence[bool]) -> list:
-    """Run ``fn(shard_inputs, coll)`` once per shard of ``mesh``, each on a
-    thread of its own; returns the outputs in rank order.  ``shard_flags[i]``
-    says whether input i is split by rows (its length must divide by the
-    mesh size) or given whole to every shard."""
+    """Run ``fn(shard_inputs, coll)`` once per shard of ``mesh``; returns
+    the outputs in rank order.  On a ``RowMesh`` each shard runs on a
+    thread of its own, and ``shard_flags[i]`` says whether input i is split
+    by rows (its length must divide by the mesh size) or given whole to
+    every shard.  On a process mesh (``dist.ProcessMesh``) only this
+    process's shard runs, on the caller's thread, over inputs that are
+    already its own (``shard_flags`` is not needed to split them), and the
+    list holds its output alone."""
+    if not isinstance(mesh, RowMesh):
+        return _run_here(mesh, fn, inputs)
     devs = mesh.devices
     n = len(devs)
     per = [[] for _ in range(n)]
@@ -217,7 +288,7 @@ def run_shards(mesh: RowMesh, fn: Callable, inputs: Sequence[torch.Tensor],
                 per[r].append(t if t.device == devs[r] else t.to(devs[r]))
     group = _Group(n, BARRIER_TIMEOUT_S)
     outs = [None] * n
-    colls = [Collectives(group, r, devs[r]) for r in range(n)]
+    colls = [_ThreadCollectives(group, r, devs[r]) for r in range(n)]
 
     def shard(r: int) -> None:
         coll = colls[r]
@@ -238,10 +309,7 @@ def run_shards(mesh: RowMesh, fn: Callable, inputs: Sequence[torch.Tensor],
         t.start()
     for t in threads:
         t.join()
-    with _STATS_LOCK:
-        STATS["calls"] += 1
-        STATS["collectives"] += colls[0]._gen
-        STATS["bytes"] += sum(c.sent for c in colls)
+    _count(colls)
     for ex in group.errors:
         if not isinstance(ex, threading.BrokenBarrierError):
             raise ex

@@ -7,9 +7,11 @@ concatenates with mat.pack (modules/mal/mat.c:124). Grouped aggregates run
 two-phase: per-piece partials + a combine step (opt_mergetable.c:15-27,
 BATgroupavg3combine gdk/gdk_aggr.c:2634).
 
-Here: a 1-D row mesh (``parallel/mesh.py``, one thread per shard); a
-row-sharded column is one tensor padded to a multiple of the shard count,
-which every shard sees a slice of; the combine step is the mesh's ``psum``.
+Here: a 1-D row mesh (``parallel/mesh.py``: one thread per shard, or one
+rank per process, ``parallel/dist.py``); on a thread mesh a row-sharded
+column is one tensor padded to a multiple of the shard count, which every
+shard sees a slice of, and on a process mesh each rank holds its own slice;
+the combine step is the mesh's ``psum``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from ..bench.kernels import q1_step, q6_step
 from ..ops.cuda_kernels import seg_sum64
-from .mesh import AXIS, RowMesh, run_shards  # noqa: F401 - AXIS re-exported
+# AXIS is re-exported
+from .mesh import AXIS, RowMesh, home_device, run_shards  # noqa: F401
 
 __all__ = ["row_mesh", "shard_array", "two_phase_sum", "sharded_q1",
            "sharded_q6", "default_mesh"]
@@ -44,11 +47,14 @@ _DEFAULT_MESH: list = []  # [RowMesh | None] once resolved
 
 
 def default_mesh() -> Optional[RowMesh]:
-    """The session-default mesh: a row mesh over all visible CUDA devices
-    when more than one is present, else None.  Sessions pass this to every
-    Engine they build so SPMD is the product path, matching the reference
-    where mitosis sits in every session's default_pipe (opt_pipes.c:76).
-    Disable with config spmd_auto_mesh=0 (no_mitosis_pipe analog)."""
+    """The session-default mesh: None unless config ``spmd_auto_mesh`` is
+    on; then a row mesh over all visible CUDA devices when more than one is
+    present, else None.  Sessions pass this to every Engine they build.
+    The reference turns it on by default (mitosis sits in every session's
+    default_pipe, opt_pipes.c:76); the port does not: on four H100s the
+    thread mesh ran the 22 TPC-H queries a median 9.96x slower than one
+    card (bench/mesh_cards.py).  ``Session(db, mesh=...)`` or
+    ``spmd_auto_mesh=1`` turn it on."""
     from .. import config
     if not config.get("spmd_auto_mesh"):
         return None
@@ -58,17 +64,25 @@ def default_mesh() -> Optional[RowMesh]:
     return _DEFAULT_MESH[0]
 
 
-def shard_array(arr, mesh: RowMesh, fill=0) -> torch.Tensor:
-    """Pad to a multiple of the mesh size with ``fill`` and place on the
-    mesh's first device (every shard of a one-device mesh reads a view of
-    it; ``run_shards`` copies the pieces of a multi-device mesh)."""
+def shard_array(arr, mesh, fill=0) -> torch.Tensor:
+    """Pad the global array ``arr`` to a multiple of the mesh size with
+    ``fill``.  On a thread mesh: the whole, placed on the mesh's first
+    device (every shard of a one-device mesh reads a view of it;
+    ``run_shards`` copies the pieces of a multi-device mesh).  On a process
+    mesh, where every process holds the same global array: this rank's
+    piece, on its device."""
     t = torch.as_tensor(np.asarray(arr)) if not isinstance(
         arr, torch.Tensor) else arr
     n = mesh.size
-    cap = -(-t.shape[0] // n) * n
-    t = t.to(mesh.devices[0])
-    if cap != t.shape[0]:
-        t = torch.cat([t, torch.full((cap - t.shape[0],), fill,
+    k = -(-t.shape[0] // n)
+    if not isinstance(mesh, RowMesh):
+        t = t[mesh.rank * k:(mesh.rank + 1) * k]
+        want = k
+    else:
+        want = k * n
+    t = t.to(home_device(mesh))
+    if want != t.shape[0]:
+        t = torch.cat([t, torch.full((want - t.shape[0],), fill,
                                      dtype=t.dtype, device=t.device)])
     return t
 
@@ -78,7 +92,7 @@ def _replicated(x, dev) -> torch.Tensor:
         np.asarray(x), device=dev)
 
 
-def two_phase_sum(mesh: RowMesh, vals: torch.Tensor, keys: torch.Tensor,
+def two_phase_sum(mesh, vals: torch.Tensor, keys: torch.Tensor,
                   mask: torch.Tensor, domain: int) -> torch.Tensor:
     """Grouped sum over row-sharded inputs: shard-local segment-sum, then
     psum across the mesh (the mat_grp two-phase aggregation).  Integer
@@ -104,13 +118,13 @@ def two_phase_sum(mesh: RowMesh, vals: torch.Tensor, keys: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def sharded_q6(mesh: RowMesh):
+def sharded_q6(mesh):
     """TPC-H Q6 as one SPMD program: scan-filter + masked sum-reduce per
     shard (``bench.kernels.q6_step``), psum-combined.  Returns a function
     over the four row-sharded columns and five scalars."""
 
     def run(shipdate, disc, qty, extp, lo, hi, dlo, dhi, qmax):
-        dev = mesh.devices[0]
+        dev = home_device(mesh)
         scal = [_replicated(x, dev) for x in (lo, hi, dlo, dhi, qmax)]
 
         def step(ins, coll):
@@ -122,7 +136,7 @@ def sharded_q6(mesh: RowMesh):
     return run
 
 
-def sharded_q1(mesh: RowMesh, domain: int = 8):
+def sharded_q1(mesh, domain: int = 8):
     """TPC-H Q1 as one SPMD program: filter + dense-domain grouped
     aggregation per shard (``bench.kernels.q1_step``: the hand-written
     ``q1_grouped_sums`` on int32 CUDA columns), psum-combined.

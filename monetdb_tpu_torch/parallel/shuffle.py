@@ -19,7 +19,11 @@ partial row per shard.
 
 A row-sharded array is one tensor on the mesh's first device whose length
 divides by the shard count (``mitosis.shard_array``); every function here
-takes and returns such tensors.
+takes and returns such tensors.  On a process mesh (``parallel/dist.py``)
+it is this rank's piece instead, and every function takes and returns the
+rank's pieces; ``lane_counts`` gives every rank the whole matrix, so that
+the host decisions taken from it (skew, lane capacity) are the same on
+every rank and every rank posts all-to-alls of one shape.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from ..column import capacity_for
-from .mesh import RowMesh, run_shards
+from .mesh import home_device, run_shards
 
 __all__ = ["hash64", "lane_counts", "shuffle", "dist_group_sum",
            "dist_group_sum_auto", "dist_fk_join"]
@@ -54,28 +58,32 @@ def _dest(key, live, ndev: int):
     return torch.where(live, (hash64(key) % ndev).to(torch.int32), ndev)
 
 
-def _gathered(mesh: RowMesh, parts) -> torch.Tensor:
-    """Per-shard pieces as one row-sharded tensor on the first device."""
-    dev = mesh.devices[0]
+def _gathered(mesh, parts) -> torch.Tensor:
+    """Per-shard pieces as one row-sharded tensor on the first device (a
+    process mesh's one piece as it is)."""
+    dev = home_device(mesh)
+    if len(parts) == 1:
+        return parts[0].to(dev)
     return torch.cat([p.to(dev) for p in parts])
 
 
-def _outputs(mesh: RowMesh, outs) -> list:
+def _outputs(mesh, outs) -> list:
     return [_gathered(mesh, [o[i] for o in outs])
             for i in range(len(outs[0]))]
 
 
-def lane_counts(mesh: RowMesh, key: torch.Tensor,
+def lane_counts(mesh, key: torch.Tensor,
                 live: torch.Tensor) -> np.ndarray:
-    """Counts pass: [D, D] matrix of rows each src shard sends to each dst."""
+    """Counts pass: [D, D] matrix of rows each src shard sends to each dst,
+    the whole of it on every shard (an all_gather of the shards' rows)."""
     D = mesh.size
 
     def count(ins, coll):
         d = _dest(ins[0], ins[1], D)
-        return torch.bincount(d, minlength=D + 1)[:D].to(torch.int32)
+        row = torch.bincount(d, minlength=D + 1)[:D].to(torch.int32)
+        return coll.all_gather(row[None])
 
-    outs = run_shards(mesh, count, (key, live), (True, True))
-    return torch.stack([o.cpu() for o in outs]).numpy()
+    return run_shards(mesh, count, (key, live), (True, True))[0].cpu().numpy()
 
 
 def detect_skew(counts: np.ndarray) -> Tuple[int, float]:
@@ -122,7 +130,7 @@ def _shuffle_local(k, lv, cols, lane_cap: int, coll):
     return got[0], live, got[1:]
 
 
-def shuffle(mesh: RowMesh, key: torch.Tensor, payloads: List[torch.Tensor],
+def shuffle(mesh, key: torch.Tensor, payloads: List[torch.Tensor],
             live: torch.Tensor, lane_cap: int):
     """Exchange rows to their hash-owner shard. Returns (key', payloads',
     live') with per-shard local length D·lane_cap."""
@@ -166,7 +174,7 @@ def _local_group_sum(k, v, lv):
     return keys_out, sums, gl
 
 
-def dist_group_sum(mesh: RowMesh, key: torch.Tensor, val: torch.Tensor,
+def dist_group_sum(mesh, key: torch.Tensor, val: torch.Tensor,
                    live: torch.Tensor, lane_cap: int,
                    pre_combine: bool = False):
     """Distributed grouped sum: shuffle by key, then shard-local sort-based
@@ -191,7 +199,7 @@ def dist_group_sum(mesh: RowMesh, key: torch.Tensor, val: torch.Tensor,
                                            (True,) * 3)))
 
 
-def dist_fk_join(mesh: RowMesh, lkey, lvals: List[torch.Tensor], llive,
+def dist_fk_join(mesh, lkey, lvals: List[torch.Tensor], llive,
                  rkey, rvals: List[torch.Tensor], rlive, lane_cap: int):
     """Distributed FK→PK join: shuffle both sides by key, then shard-local
     probe (right side unique per key). Returns left rows with gathered right
@@ -219,7 +227,7 @@ def dist_fk_join(mesh: RowMesh, lkey, lvals: List[torch.Tensor], llive,
     return out[0], list(out[1:-1]), out[-1]
 
 
-def _pre_combine(mesh: RowMesh, key, val, live):
+def _pre_combine(mesh, key, val, live):
     """Shard-local combiner (the 'map-side combine' of the two-level
     skew-resistant aggregation)."""
     return tuple(_outputs(mesh, run_shards(
@@ -227,7 +235,7 @@ def _pre_combine(mesh: RowMesh, key, val, live):
         (True,) * 3)))
 
 
-def dist_group_sum_auto(mesh: RowMesh, key: torch.Tensor, val: torch.Tensor,
+def dist_group_sum_auto(mesh, key: torch.Tensor, val: torch.Tensor,
                         live: torch.Tensor, skew_ratio: float = 4.0):
     """Skew-aware distributed grouped sum: measure lane counts, and when
     the max/mean ratio exceeds skew_ratio, pre-combine locally so the

@@ -7,8 +7,9 @@ same query machinery).
 
 Queries run through ``Engine`` on the device the session's ``Database``
 was opened with, and SPMD over the session's row mesh where it has one
-(``mesh=``, or ``parallel.default_mesh()`` for a store on a CUDA device:
-every visible card when there are more than one)."""
+(``mesh=``, or ``parallel.default_mesh()`` for a store on a CUDA device
+when config ``spmd_auto_mesh`` is on: every visible card when there are
+more than one; the port's default is off)."""
 
 from __future__ import annotations
 
@@ -51,8 +52,10 @@ class Session:
                  mesh=None):
         self.db = db
         # row mesh for SPMD plan execution: explicit, or the process
-        # default over the visible cards - mitosis sits in every session's
-        # default_pipe (opt_pipes.c:76); config spmd_auto_mesh=0 disables
+        # default over the visible cards when config spmd_auto_mesh is on
+        # (the reference's default, where mitosis sits in every session's
+        # default_pipe, opt_pipes.c:76; off in the port: the thread mesh
+        # over four cards was slower than one card, bench/mesh_cards.py)
         if mesh is None and getattr(getattr(db, "device", None), "type",
                                     None) == "cuda":
             from .parallel import default_mesh

@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 _PKG = _ROOT / "monetdb_tpu_torch"
 
@@ -41,6 +43,11 @@ def test_import_pulls_in_no_jax():
         "from monetdb_tpu_torch import parallel\n"
         "from monetdb_tpu_torch.parallel import mesh, mitosis, shuffle\n"
         "from monetdb_tpu_torch.bench import kernels\n"
+        "from monetdb_tpu_torch.parallel import dist\n"
+        "from monetdb_tpu_torch import harness\n"
+        "from monetdb_tpu_torch.bench import mesh_procs, mesh_cards\n"
+        "assert parallel.ProcessMesh is dist.ProcessMesh\n"
+        "assert parallel.initialize is dist.initialize\n"
         "m = parallel.row_mesh(['cpu'] * 2)\n"
         "t = parallel.shard_array(__import__('numpy').arange(5), m)\n"
         "assert int(shuffle.lane_counts(m, t, t >= 0).sum()) == 6\n"
@@ -100,3 +107,30 @@ def test_no_source_imports_jax():
     hits = [str(f.relative_to(_ROOT)) for f in files
             if pat.search(f.read_text()) or named.search(f.read_text())]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("module, code", [("monetdb_tpu_torch.harness", 1),
+                                          ("monetdb_tpu_torch.bench."
+                                           "mesh_procs", 2)])
+def test_harness_and_mesh_procs_entry_points_load_no_jax(module, code):
+    """``python -m monetdb_tpu_torch.harness`` and ``python -m
+    monetdb_tpu_torch.bench.mesh_procs`` load neither jax nor monetdb_tpu
+    (without a card the first exits 1, the second 2)."""
+    if __import__("torch").cuda.is_available():
+        pytest.skip("the entry points would run on the card")
+    src = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}]\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as ex:\n"
+        f"    assert ex.code == {code}, ex.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'monetdb_tpu' or "
+        "m.startswith('monetdb_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", src], cwd=_ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")

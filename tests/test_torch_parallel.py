@@ -165,21 +165,25 @@ def test_row_mesh_is_hashable_and_cuda_default_raises():
 
 
 def test_default_mesh_spans_the_cards_unless_turned_off(monkeypatch):
-    """On a host with four cards the session-default mesh is one shard per
-    card, as in the reference; config spmd_auto_mesh off gives None."""
+    """On a host with four cards the session-default mesh is None: the
+    port's spmd_auto_mesh is off (the reference's is on; the thread mesh
+    over four H100s was slower than one card).  Turned on, it is one shard
+    per card, as in the reference."""
     from monetdb_tpu_torch import config as TC
     from monetdb_tpu_torch.parallel import mitosis
     monkeypatch.setattr(mitosis, "_DEFAULT_MESH", [])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    TC.set("spmd_auto_mesh", False)
+    assert TC.get("spmd_auto_mesh") is False
+    assert TP.default_mesh() is None and mitosis._DEFAULT_MESH == []
+    TC.set("spmd_auto_mesh", True)
     try:
-        assert TP.default_mesh() is None
+        mesh = TP.default_mesh()
+        assert mesh == TP.row_mesh([torch.device("cuda", i)
+                                    for i in range(4)])
+        assert TP.default_mesh() is mesh and mitosis._DEFAULT_MESH == [mesh]
     finally:
         TC.reset("spmd_auto_mesh")
-    mesh = TP.default_mesh()
-    assert mesh == TP.row_mesh([torch.device("cuda", i) for i in range(4)])
-    assert TP.default_mesh() is mesh and mitosis._DEFAULT_MESH == [mesh]
 
 
 class _YieldingCounts(dict):
