@@ -121,11 +121,23 @@ Phases, one or more output lines each, and a line with each phase's time:
              walls of both meshes, collectives and bytes a rank.  Then a
              failure drill: one rank raises after a collective and every
              rank must exit non-zero.
-15. harness - monetdb_tpu_torch/harness.py: ``entry()`` on the card equal
+15. hybrid - the hybrid mesh (parallel/dist.py with several shards a
+             process): 2 processes of 2 shards each on the one card, a
+             global mesh of 4, host-staged gloo between the processes and
+             the shards handed over by reference inside each; the same
+             data and primitives as procs: every global shard's piece
+             exact against numpy and bit-equal to the same shard of
+             ``row_mesh([cuda:0] * 4)``; 6 seg_sum64 and 1 q1_grouped_sums
+             launches a shard (12 and 2 a process).  Prints warm walls of
+             both meshes and the all-to-all's in-process and cross-process
+             parts apart.  Then a failure drill: the last local shard
+             raises after a collective and both processes must exit
+             non-zero.
+16. harness - monetdb_tpu_torch/harness.py: ``entry()`` on the card equal
              to the CPU, ``dryrun_multichip(8)`` on ``[cuda:0] * 8`` (the
              22 queries at SF0.002 against one device, sharded_q1 / q6,
              the shuffles; it raises on a failed check).
-16. durable - a store on local disk under $TMPDIR at SF1: the eight tables
+17. durable - a store on local disk under $TMPDIR at SF1: the eight tables
              made by SQL DDL, loaded by COPY BINARY (one .npy per numeric
              column, one text file per string column) and ``orders`` by
              COPY INTO from a CSV through the native parser; checkpoint;
@@ -143,19 +155,19 @@ Phases, one or more output lines each, and a line with each phase's time:
              card: the 22 queries through its proxy (oracle over the
              changed arrays), status, stop (must checkpoint), snapshot,
              restore as ``db2`` and a ``Funnel`` counting lineitem in both.
-17. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
+18. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
              (tests/sqllogic/ref, held to REF_LEDGER.md with the ledger
              generator's CHAINS) through ``SqlLogicRunner(Session(
              Database()))`` on the card: every pass file passes, every
              known-fail fails.
-18. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
+19. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
              polygon (64 vertices with a hole; a multipolygon), distance
              sums to a polygon, multipolygon, linestring and point,
              geographic DWithin, coordinate sums, st_area over 1,000
              polygons: counts exactly and floats to rel 1e-9 against numpy
              (even-odd ray cast, segment distance, haversine, shoelace);
              peak device memory per query.
-19. external - ``external_sort`` of 2^27 seeded int64 (ascending,
+20. external - ``external_sort`` of 2^27 seeded int64 (ascending,
              descending) and of 2^26 values that are 90% one value, in
              tiles of 2^24 rows; ``streaming_cumsum`` and
              ``streaming_window_sum(w=1000)`` over the 2^27 values: equal
@@ -163,11 +175,11 @@ Phases, one or more output lines each, and a line with each phase's time:
              reference's 1B-row envelope is cut to 2^27 rows for time.
 
 The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12,
-13 (before its SQL, then again before the sharded kernel steps) and 16
+13 (before its SQL, then again before the sharded kernel steps) and 17
 (before its replayed queries, then again before the farm's) and read just
-after each; in phase 14 each rank sets its own to 0 just before its pass
-over the primitives and reads them just after, and the ranks' counts are
-summed.  Then one JSON line with each kernel's launches
+after each; in phases 14 and 15 each process sets its own to 0 just before
+its pass over the primitives and reads them just after, and the processes'
+counts are summed (``launches_procs``, ``launches_hybrid``).  Then one JSON line with each kernel's launches
 on its path, error, times and bound, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero without that line.
@@ -1483,6 +1495,46 @@ def phase_procs(dev, seg: dict, q1: dict, gsl: dict) -> None:
          f"collective; every rank exited non-zero within {took:.2f} s")
 
 
+#: the hybrid phase: HYBRID_PROCS processes of HYBRID_LOCAL shards each on
+#: the one card, the procs phase's data
+HYBRID_PROCS = 2
+HYBRID_LOCAL = 2
+
+
+def phase_hybrid(dev, seg: dict, q1: dict, gsl: dict) -> None:
+    """The hybrid mesh (monetdb_tpu_torch/parallel/dist.py with several
+    shards a process): HYBRID_PROCS processes of HYBRID_LOCAL shards each
+    on the one card, host-staged gloo between the processes, run the
+    parallel primitives (monetdb_tpu_torch/bench/mesh_procs.py); every
+    global shard's output exact against numpy (in its process) and
+    against the same shard of ``row_mesh([cuda:0] * 4)`` (here).  The
+    processes' kernel launches of the checked run add up into the kernels
+    line."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shards = HYBRID_PROCS * HYBRID_LOCAL
+    res = MP.compare([str(dev)] * shards, "gloo", PROCS_ROWS_LOG2,
+                     FUSED_NS[0], warm=PROCS_WARM, local=HYBRID_LOCAL)
+    want = {k: v * shards for k, v in PROCS_LAUNCHES.items()}
+    if res["launches"] != want:
+        raise AssertionError(f"hybrid launches {res['launches_per_rank']}, "
+                             f"expected {PROCS_LAUNCHES} a shard")
+    seg["launches_hybrid"] = res["launches"]["seg_sum64"]
+    q1["launches_hybrid"] = res["launches"]["q1_grouped_sums"]
+    gsl["launches_hybrid"] = res["launches"]["grouped_sum_limbs"]
+    _log(f"hybrid: {HYBRID_PROCS} processes of {HYBRID_LOCAL} shards, "
+         f"{res['mesh']} (host-staged gloo between the processes on {dev}, "
+         f"by reference inside each), {res['rows']} int64 rows and "
+         f"{res['fused_rows']} Q1 / Q6 rows; processes ran "
+         f"{res['procs_s']:.2f} s ({res['rank_seconds']}); lane capacities "
+         f"{res['caps']}; launches a process {res['launches_per_rank'][0]}")
+    MP.report(res)
+    took = MP.fail_drill([str(dev)] * shards, "gloo", 30.0,
+                         local=HYBRID_LOCAL)
+    _log(f"hybrid: failure drill: shard {shards - 1} raised after one "
+         f"collective; both processes exited non-zero within {took:.2f} s")
+
+
 def phase_harness(dev) -> None:
     """monetdb_tpu_torch/harness.py on the card: ``entry()``'s Q1 step
     equal to the same step over the same columns on the CPU, and
@@ -2430,6 +2482,7 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _timed("procs", phase_procs, dev, seg, q1, gsl)
+    _timed("hybrid", phase_hybrid, dev, seg, q1, gsl)
     _timed("harness", phase_harness, dev)
     _timed("durable + farm", phase_durable, dev, data, seg)
     _timed("sqllogic", phase_sqllogic, dev)

@@ -1,14 +1,18 @@
 """The row mesh's parallel primitives on a process mesh - one rank per card,
 NCCL between them (``parallel/dist.py``) - beside the thread mesh over the
-same cards (``row_mesh([cuda:0..n-1])``), with every rank's output held to
+same cards (``row_mesh([cuda:0..n-1])``), with every shard's output held to
 a numpy oracle and to the thread mesh's shard of the same rank.
 
     python -m monetdb_tpu_torch.bench.mesh_procs [--rows-log2 25]
-        [--fused-rows 24000000] [--warm 5] [--out FILE]
+        [--fused-rows 24000000] [--warm 5] [--local K] [--out FILE]
 
 On a host with two or more cards it starts one rank per card, each a
 process of its own (``python -m monetdb_tpu_torch.bench.mesh_procs --rank
-...``).  Every rank makes the same global data from one seed: 2^rows-log2
+...``); with ``--local K``, one process per K cards instead, each holding
+K shards (the hybrid mesh: peer copies inside a process, NCCL between
+processes), and then the one-card-a-process mesh as well, so that the
+table has the hybrid mesh, the process mesh and the thread mesh over the
+same cards.  Every rank makes the same global data from one seed: 2^rows-log2
 int64 rows (keys uniform in [0, 2^20) and Zipf(2), values, 5% dead rows, a
 unique build side of 2^20 keys) and ``--fused-rows`` rows of TPC-H Q1 / Q6
 columns in int32 and int64 (the ranges of ``chip_smoke.py``'s kernel
@@ -16,22 +20,26 @@ phase), and runs ``two_phase_sum``, ``sharded_q6``, ``sharded_q1`` (the
 int32 route through ``q1_grouped_sums``, the int64 one through
 ``seg_sum64``), ``lane_counts``, ``shuffle``, ``dist_group_sum``,
 ``dist_group_sum_auto`` and ``dist_fk_join`` once, checks its own piece of
-each against numpy, and then times ``--warm`` runs of each (a barrier
-before each run), the all-to-all of one shuffle's buffers alone, and its
-host's cost per eager op.  When the ranks are done the script runs the same
-primitives over the thread mesh, holds each shard's output bit-equal to
-the rank's (sha256 of every output tensor), and times them the same way.
-Last, a failure drill: one rank per card again, the last raising after
-one collective; every rank must exit non-zero, and the script prints how
-long that took.
+each of its shards' pieces against numpy, and then times ``--warm`` runs
+of each (a barrier before each run), the all-to-all of one shuffle's
+buffers alone (on a hybrid mesh also its two parts apart: the chunks that
+stay inside a process, and those that cross), and its host's cost per
+eager op.  When the ranks are done the script runs the same primitives
+over the thread mesh, holds each shard's output bit-equal to the same
+global shard's (sha256 of every output tensor), and times them the same
+way.  Last, a failure drill: the same processes again, the last shard
+raising after one collective; every process must exit non-zero, and the
+script prints how long that took.
 
 Prints the cards' name and power limit, one line per primitive (the warm
 median wall on each mesh, collectives and bytes a rank, the all-to-all's
 rate) and last one JSON object with every number (also written to
 ``--out``).  Exits 1 on any difference or failed rank, 2 on a host with
 fewer than two cards.  ``chip_smoke.py`` drives the same code with two
-host-staged gloo ranks on one card, and tests/test_torch_dist.py the rank
-program with four gloo ranks on the CPU.
+host-staged gloo ranks on one card, and with two processes of two shards
+each there; tests/test_torch_dist.py the rank program with four gloo ranks
+on the CPU, and tests/test_torch_hybrid.py with two of four CPU shards
+each.
 """
 
 from __future__ import annotations
@@ -197,13 +205,12 @@ def lane_caps(mesh, p) -> dict:
 
 
 def pieces(mesh, kind: str, outs) -> list:
-    """Per shard, the output tensors as numpy arrays: a process mesh's own
-    piece; each shard's slice of a thread mesh's row-sharded result."""
+    """Per shard of this process (every shard of a thread mesh), the output
+    tensors as numpy arrays: each shard's slice of a row-sharded
+    result."""
     outs = [o.cpu().numpy() for o in outs]
-    if not isinstance(mesh, RowMesh):
-        return [outs]
-    d = mesh.size
-    if kind == "replicated":
+    d = len(mesh.devices)
+    if kind == "replicated" or d == 1:
         return [outs] * d
     split = len(outs) - (kind == "sharded+info")
     return [[o.reshape(d, -1)[r] for o in outs[:split]] + outs[split:]
@@ -257,10 +264,10 @@ def _pairs(k: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 
 class Oracle:
-    """numpy's answers for rank ``rank`` of ``size`` over ``inp``."""
+    """numpy's answers for the shards of a mesh of ``size`` over ``inp``."""
 
-    def __init__(self, inp: dict, rank: int, size: int):
-        self.inp, self.rank, self.size = inp, rank, size
+    def __init__(self, inp: dict, size: int):
+        self.inp, self.size = inp, size
         self._memo = {}
 
     def _once(self, key, fn):
@@ -272,10 +279,10 @@ class Oracle:
         return self._once(("dest", name),
                           lambda: np_hash64(self.inp[name]) % self.size)
 
-    def mine(self, name: str) -> np.ndarray:
-        """Live rows whose key this rank owns."""
-        return self._once(("mine", name), lambda: self.inp["live"]
-                          & (self.dest(name) == self.rank))
+    def mine(self, name: str, rank: int) -> np.ndarray:
+        """Live rows whose key shard ``rank`` owns."""
+        return self._once(("mine", name, rank), lambda: self.inp["live"]
+                          & (self.dest(name) == rank))
 
     def q1(self) -> list:
         """Q1's six grouped sums over the fused columns, exactly: rows
@@ -296,14 +303,14 @@ class Oracle:
             return out + [np.diff(bounds)]
         return self._once("q1", run)
 
-    def sums(self, keys: str):
-        m = self.mine(keys)
-        return self._once(("sums", keys), lambda: _group_sums(
+    def sums(self, keys: str, rank: int):
+        m = self.mine(keys, rank)
+        return self._once(("sums", keys, rank), lambda: _group_sums(
             self.inp[keys][m], self.inp["vals"][m]))
 
-    def check(self, name: str, got: list) -> None:
-        """Raise AssertionError unless ``got`` (this rank's output arrays
-        of primitive ``name``) is numpy's answer."""
+    def check(self, name: str, got: list, rank: int) -> None:
+        """Raise AssertionError unless ``got`` (shard ``rank``'s output
+        arrays of primitive ``name``) is numpy's answer."""
         inp, d = self.inp, self.size
         live, vals = inp["live"], inp["vals"]
         base = name.rsplit("_", 1)
@@ -335,26 +342,27 @@ class Oracle:
             ok = np.array_equal(got[0], want)
         elif base[0] == "shuffle":
             k, v, lv = got
-            m = self.mine(base[1])
+            m = self.mine(base[1], rank)
             ok = (np.array_equal(_pairs(k[lv], v[lv]),
                                  _pairs(inp[base[1]][m], vals[m]))
-                  and bool((np_hash64(k[lv]) % d == self.rank).all()))
+                  and bool((np_hash64(k[lv]) % d == rank).all()))
         elif name.startswith("dist_group_sum"):
             k, s, lv = got[:3]
-            ks, ss = self.sums(name.rsplit("_", 1)[1])
+            ks, ss = self.sums(name.rsplit("_", 1)[1], rank)
             order = np.argsort(k[lv], kind="stable")
             ok = (np.array_equal(k[lv][order], ks)
                   and np.array_equal(s[lv][order], ss))
         elif name == "dist_fk_join":
             k, lv, rv, hit = got
-            m = self.mine("probe") & (inp["probe"] < len(inp["build"]))
+            m = self.mine("probe", rank) & (inp["probe"]
+                                            < len(inp["build"]))
             ok = (np.array_equal(_pairs(k[hit], lv[hit]),
                                  _pairs(inp["probe"][m], vals[m]))
                   and np.array_equal(rv[hit], k[hit] * 1000 + 7))
         else:
             raise KeyError(name)
         if not ok:
-            raise AssertionError(f"rank {self.rank}: {name} != numpy")
+            raise AssertionError(f"shard {rank}: {name} != numpy")
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +371,7 @@ class Oracle:
 
 
 def _sync(mesh) -> None:
-    devs = mesh.devices if isinstance(mesh, RowMesh) else (mesh.device,)
-    for dv in set(devs):
+    for dv in set(mesh.devices):
         if dv.type == "cuda":
             torch.cuda.synchronize(dv)
 
@@ -377,8 +384,8 @@ def _barrier(mesh) -> None:
 
 def drive(mesh, inp: dict, floats: bool):
     """Every primitive once over ``mesh``.  Returns (placed inputs, lane
-    capacities, {name: per-shard numpy outputs}, {name: {collectives,
-    bytes} of one shard})."""
+    capacities, {name: numpy outputs of each shard of this process},
+    {name: {collectives, bytes} of one shard})."""
     p = _placed(mesh, inp)
     caps = lane_caps(mesh, p)
     outs, stats = {}, {}
@@ -386,7 +393,7 @@ def drive(mesh, inp: dict, floats: bool):
         s0 = dict(MESH.STATS)
         got = fn(mesh, p, caps)
         _sync(mesh)
-        shards = 1 if not isinstance(mesh, RowMesh) else mesh.size
+        shards = len(mesh.devices)
         stats[name] = {
             "collectives": MESH.STATS["collectives"] - s0["collectives"],
             "bytes": (MESH.STATS["bytes"] - s0["bytes"]) // shards}
@@ -429,6 +436,25 @@ def a2a_rate(mesh, nbytes: int, reps: int) -> dict:
     return {"bytes": nbytes, "ms": ms, "gb_s": nbytes / ms / 1e6}
 
 
+def a2a_parts(mesh, nbytes: int, reps: int) -> dict:
+    """A hybrid mesh's all-to-all of ``nbytes`` a shard in its two parts,
+    each alone.  In the process: the 1 / processes of a shard's bytes
+    meant for the process's own shards, exchanged among them as the thread
+    mesh over its devices exchanges them (by reference, or a peer copy
+    between cards); GB/s a shard.  Across processes: the process group's
+    ``all_to_all_single`` of the rest, as the mesh of one shard a process
+    over the same group sends it (local x ``nbytes`` a process, of which
+    (processes - 1) / processes cross); GB/s of what crosses, a
+    process."""
+    inner = a2a_rate(RowMesh(mesh.devices), nbytes // mesh.processes, reps)
+    mesh.barrier()
+    cross = a2a_rate(mesh.per_process(), nbytes * mesh.local, reps)
+    crossed = nbytes * mesh.local * (mesh.processes - 1) // mesh.processes
+    return {"in_process": inner,
+            "cross_process": {"bytes": crossed, "ms": cross["ms"],
+                              "gb_s": crossed / cross["ms"] / 1e6}}
+
+
 def eager_us(device, n: int = 2000) -> float:
     """Host microseconds an eager op takes on ``device`` (2,000 of them)."""
     x = torch.zeros(8, device=device)
@@ -454,12 +480,13 @@ def a2a_bytes(mesh, caps) -> int:
 # ---------------------------------------------------------------------------
 
 
-def rank_run(mesh, args) -> dict:
-    """This rank's part on a joined ``mesh``: every primitive once
+def rank_run(mesh, args) -> list:
+    """This process's part on a joined ``mesh``: every primitive once
     (the kernel launch counts set to 0 just before and read just after),
-    its pieces checked against numpy, ``args.warm`` timed runs; writes
-    ``rank<r>.json`` (and with ``args.save`` every output array in
-    ``rank<r>.npz``) under ``args.out`` and returns the report."""
+    each of its shards' pieces checked against numpy, ``args.warm`` timed
+    runs; writes ``rank<g>.json`` (and with ``args.save`` every output
+    array in ``rank<g>.npz``) under ``args.out`` for each of its global
+    shards g, and returns their reports."""
     floats = mesh.device.type == "cpu"
     if floats:
         # the ranks share the host's cores: torch's op threads, spinning
@@ -477,33 +504,43 @@ def rank_run(mesh, args) -> dict:
     took["drive"] = time.perf_counter() - t0
     launches = dict(CK.LAUNCHES)
     t0 = time.perf_counter()
-    oracle = Oracle(inp, mesh.rank, mesh.size)
-    for name, (got,) in outs.items():
-        oracle.check(name, got)
+    oracle = Oracle(inp, mesh.size)
+    for name, shards in outs.items():
+        for g, got in zip(mesh.shards, shards):
+            oracle.check(name, got, g)
     took["numpy_check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rep = {"rank": mesh.rank, "mesh": repr(mesh), "caps": caps,
-           "launches": launches, "stats": stats, "seconds": took,
-           "digests": {n: digest(g) for n, (g,) in outs.items()}}
+    digests = {n: [digest(g) for g in shards] for n, shards in outs.items()}
     took["digests"] = time.perf_counter() - t0
+    rep = {"process": mesh.rank, "mesh": repr(mesh), "caps": caps,
+           "launches": launches, "stats": stats, "seconds": took}
     if args.warm:
         t0 = time.perf_counter()
         rep["ms"] = time_all(mesh, p, caps, floats, args.warm)
         rep["a2a"] = a2a_rate(mesh, a2a_bytes(mesh, caps), args.warm)
+        if mesh.local > 1:
+            mesh.barrier()
+            rep["a2a_parts"] = a2a_parts(mesh, a2a_bytes(mesh, caps),
+                                         args.warm)
         mesh.barrier()
         rep["eager_us"] = eager_us(mesh.device)
         took["timed"] = time.perf_counter() - t0
-    out = os.path.join(args.out, f"rank{mesh.rank}")
-    if args.save:
-        np.savez(out + ".npz", **{f"{n}.{i}": a for n, (g,) in outs.items()
-                                  for i, a in enumerate(g)})
-    with open(out + ".json", "w") as f:
-        json.dump(rep, f)
-    return rep
+    reps = []
+    for j, g in enumerate(mesh.shards):
+        reps.append(dict(rep, rank=g, digests={n: d[j] for n, d in
+                                               digests.items()}))
+        out = os.path.join(args.out, f"rank{g}")
+        if args.save:
+            np.savez(out + ".npz", **{f"{n}.{i}": a
+                                      for n, shards in outs.items()
+                                      for i, a in enumerate(shards[j])})
+        with open(out + ".json", "w") as f:
+            json.dump(reps[-1], f)
+    return reps
 
 
 def _drill(mesh, fail_rank: int) -> None:
-    """Two psums; rank ``fail_rank`` raises between them."""
+    """Two psums; shard ``fail_rank`` raises between them."""
     def fn(ins, coll):
         coll.psum(torch.ones(4, device=coll.device))
         if coll.rank == fail_rank:
@@ -513,11 +550,14 @@ def _drill(mesh, fail_rank: int) -> None:
 
 
 def rank_main(args) -> int:
-    """One rank: join the group, run its part (or the failure drill),
+    """One process: join the group (one shard on ``--device``, or one on
+    each of a comma-separated list), run its part (or the failure drill),
     leave."""
+    devs = args.device.split(",") if args.device else [None]
+    where = ({"device": devs[0]} if len(devs) == 1 else {"devices": devs})
     mesh = DIST.initialize(args.addr, args.ranks, args.rank,
-                           device=args.device, backend=args.backend,
-                           timeout=args.timeout)
+                           backend=args.backend, timeout=args.timeout,
+                           **where)
     if args.fail_rank is not None:
         _drill(mesh, args.fail_rank)
         return 0
@@ -542,7 +582,8 @@ def rank_argv(rank: int, ranks: int, addr: str, device: str, backend: str,
               out: str, rows_log2: int, fused_rows: int, key_domain: int,
               seed: int, dead: int, warm: int, timeout: float,
               save: bool = False) -> list:
-    """The command line of one rank."""
+    """The command line of one process (``device``: one, or a
+    comma-separated list of its devices)."""
     argv = [sys.executable, "-m", "monetdb_tpu_torch.bench.mesh_procs",
             "--rank", str(rank), "--ranks", str(ranks), "--addr", addr,
             "--device", device, "--backend", backend, "--out", out,
@@ -596,17 +637,29 @@ def run_ranks(argvs: list, wait_s: float) -> list:
     return res
 
 
-def fail_drill(devices: list, backend: str, timeout: float) -> float:
-    """One rank per device; the last raises after the first collective.
-    Every rank must exit non-zero (the others at their next collective, or
-    at ``timeout``); returns the seconds until the last one ended."""
+def _groups(devices: list, local: int) -> list:
+    """Each process's devices, as its ``--device`` argument."""
+    if not devices or len(devices) % local:
+        raise ValueError(f"{len(devices)} devices do not split into "
+                         f"processes of {local}")
+    return [",".join(map(str, devices[p:p + local]))
+            for p in range(0, len(devices), local)]
+
+
+def fail_drill(devices: list, backend: str, timeout: float,
+               local: int = 1) -> float:
+    """One process per ``local`` devices; the last shard raises after the
+    first collective.  Every process must exit non-zero (the others at
+    their next collective, or at ``timeout``); returns the seconds until
+    the last one ended."""
     if any(str(x).startswith("cuda") for x in devices):
         CK.build()
-    d = len(devices)
+    groups = _groups(devices, local)
+    n = len(groups)
     addr = f"127.0.0.1:{free_port()}"
-    argvs = [rank_argv(r, d, addr, str(devices[r]), backend, ".", 0, 0, 0,
-                       0, 0, 0, timeout) + ["--fail-rank", str(d - 1)]
-             for r in range(d)]
+    argvs = [rank_argv(r, n, addr, groups[r], backend, ".", 0, 0, 0,
+                       0, 0, 0, timeout)
+             + ["--fail-rank", str(len(devices) - 1)] for r in range(n)]
     t0 = time.perf_counter()
     res = run_ranks(argvs, wait_s=timeout + 60)
     took = time.perf_counter() - t0
@@ -619,11 +672,16 @@ def fail_drill(devices: list, backend: str, timeout: float) -> float:
 
 def compare(devices: list, backend: str, rows_log2: int, fused_rows: int,
             key_domain: int = 1 << 20, seed: int = 42, warm: int = 5,
-            dead: int = -1, timeout: float = RANK_TIMEOUT_S) -> dict:
-    """Ranks on ``devices`` (one each) over ``backend``, then the thread
-    mesh ``row_mesh(devices)``: every rank's outputs checked against numpy
-    (in the rank) and against the thread mesh's shard (here).  Returns the
-    numbers; raises AssertionError on a failed rank or a difference."""
+            dead: int = -1, timeout: float = RANK_TIMEOUT_S,
+            local: int = 1) -> dict:
+    """Processes of ``local`` devices each over ``devices`` (one shard per
+    device, global shard g on ``devices[g]``) joined by ``backend``, then
+    the thread mesh ``row_mesh(devices)``: every shard's outputs checked
+    against numpy (in its process) and against the thread mesh's shard of
+    the same rank (here).  Returns the numbers; raises AssertionError on a
+    failed process or a difference."""
+    groups = _groups(devices, local)
+    n = len(groups)
     d = len(devices)
     dead = (1 << rows_log2) // 20 if dead < 0 else dead
     if any(str(x).startswith("cuda") for x in devices):
@@ -631,19 +689,20 @@ def compare(devices: list, backend: str, rows_log2: int, fused_rows: int,
     addr = f"127.0.0.1:{free_port()}"
     with tempfile.TemporaryDirectory(prefix="mesh_procs_") as out:
         t0 = time.perf_counter()
-        res = run_ranks([rank_argv(r, d, addr, str(devices[r]), backend,
+        res = run_ranks([rank_argv(r, n, addr, groups[r], backend,
                                    out, rows_log2, fused_rows, key_domain,
                                    seed, dead, warm, timeout)
-                         for r in range(d)], wait_s=timeout + 600)
+                         for r in range(n)], wait_s=timeout + 600)
         procs_s = time.perf_counter() - t0
         bad = [f"rank {r} exit {rc}:\n{err[-3000:]}"
                for r, (rc, _o, err) in enumerate(res) if rc != 0]
         if bad:
             raise AssertionError("\n".join(bad))
         reps = []
-        for r in range(d):
-            with open(os.path.join(out, f"rank{r}.json")) as f:
+        for g in range(d):
+            with open(os.path.join(out, f"rank{g}.json")) as f:
                 reps.append(json.load(f))
+    per_proc = reps[::local]
     floats = torch.device(devices[0]).type == "cpu"
     inp = make_inputs(1 << rows_log2, fused_rows, key_domain, seed, dead,
                       floats)
@@ -655,30 +714,37 @@ def compare(devices: list, backend: str, rows_log2: int, fused_rows: int,
               if digest(g) != reps[r]["digests"][name]]
     if caps != reps[0]["caps"]:
         differ.append(f"lane capacities {caps} != {reps[0]['caps']}")
-    result = {"mesh": reps[0]["mesh"], "ranks": d, "rows": 1 << rows_log2,
-              "fused_rows": fused_rows, "caps": caps, "procs_s": procs_s,
-              "launches": {k: sum(rp["launches"][k] for rp in reps)
+    result = {"mesh": reps[0]["mesh"], "ranks": n, "local": local,
+              "rows": 1 << rows_log2, "fused_rows": fused_rows,
+              "caps": caps, "procs_s": procs_s,
+              "launches": {k: sum(rp["launches"][k] for rp in per_proc)
                            for k in reps[0]["launches"]},
-              "launches_per_rank": [rp["launches"] for rp in reps],
+              "launches_per_rank": [rp["launches"] for rp in per_proc],
               "rank_seconds": reps[0]["seconds"],
               "primitives": {}}
     if warm:
         tms = time_all(mesh, p, caps, floats, warm)
         ta2a = a2a_rate(mesh, a2a_bytes(mesh, caps), warm)
-        result["a2a"] = {"process": max((rp["a2a"] for rp in reps),
+        result["a2a"] = {"process": max((rp["a2a"] for rp in per_proc),
                                         key=lambda a: a["ms"]),
                          "thread": ta2a}
+        if local > 1:
+            for part in ("in_process", "cross_process"):
+                result["a2a"][part] = max(
+                    (rp["a2a_parts"][part] for rp in per_proc),
+                    key=lambda a: a["ms"])
         # threads: one alone, and one per shard at once (mesh_cards's)
         threads = (dispatch_cost(list(mesh.devices))
                    if mesh.devices[0].type == "cuda" else
                    {"one_thread": eager_us(mesh.devices[0])})
         result["eager_us"] = {
-            "process_per_card": [rp["eager_us"] for rp in reps], **threads}
+            "process_per_card": [rp["eager_us"] for rp in per_proc],
+            **threads}
     for name in outs:
         e = {"process_stats": reps[0]["stats"][name],
              "thread_stats": stats[name]}
         if warm:
-            e["process_ms"] = max(rp["ms"][name] for rp in reps)
+            e["process_ms"] = max(rp["ms"][name] for rp in per_proc)
             e["thread_ms"] = tms[name]
         result["primitives"][name] = e
     result["differ"] = differ
@@ -688,13 +754,24 @@ def compare(devices: list, backend: str, rows_log2: int, fused_rows: int,
 
 
 def report(result: dict) -> None:
+    """One line per primitive of a ``compare`` result (with
+    ``result["per_process"]``, a second one's over the same cards with one
+    card a process: the hybrid mesh, the process mesh and the thread
+    mesh)."""
+    kind = "hybrid mesh" if result["local"] > 1 else "process mesh"
+    other = result.get("per_process")
     for name, e in result["primitives"].items():
         times = ""
         if "process_ms" in e:
-            times = (f"warm median {e['process_ms']:.3f} ms process mesh, "
-                     f"{e['thread_ms']:.3f} ms thread mesh; ")
-        _log(f"mesh_procs: {name}: every rank equal to numpy and to the "
-             f"thread mesh's shard; {times}a rank "
+            also = ""
+            if other:
+                o = other["primitives"][name]
+                also = (f"{o['process_ms']:.3f} ms process mesh (thread mesh "
+                        f"{o['thread_ms']:.3f} ms in its run), ")
+            times = (f"warm median {e['process_ms']:.3f} ms {kind}, "
+                     f"{also}{e['thread_ms']:.3f} ms thread mesh; ")
+        _log(f"mesh_procs: {name}: every shard equal to numpy and to the "
+             f"thread mesh's shard; {times}a shard "
              f"{e['process_stats']['collectives']} collectives, "
              f"{e['process_stats']['bytes'] / 2**20:.2f} MiB "
              f"(thread mesh a shard {e['thread_stats']['collectives']}, "
@@ -702,16 +779,29 @@ def report(result: dict) -> None:
     if "a2a" in result:
         a, t = result["a2a"]["process"], result["a2a"]["thread"]
         _log(f"mesh_procs: all_to_all of {a['bytes'] / 2**20:.1f} MiB a "
-             f"rank: process mesh {a['ms']:.3f} ms ({a['gb_s']:.1f} GB/s "
-             f"a rank), thread mesh {t['ms']:.3f} ms ({t['gb_s']:.1f} "
+             f"shard: {kind} {a['ms']:.3f} ms ({a['gb_s']:.1f} GB/s a "
+             f"shard), thread mesh {t['ms']:.3f} ms ({t['gb_s']:.1f} "
              f"GB/s a shard)")
+        if "in_process" in result["a2a"]:
+            i, c = (result["a2a"]["in_process"],
+                    result["a2a"]["cross_process"])
+            _log(f"mesh_procs: its parts alone: in a process "
+                 f"{i['bytes'] / 2**20:.1f} MiB a shard in {i['ms']:.3f} ms "
+                 f"({i['gb_s']:.1f} GB/s a shard), across processes "
+                 f"{c['bytes'] / 2**20:.1f} MiB a process in "
+                 f"{c['ms']:.3f} ms ({c['gb_s']:.1f} GB/s a process)")
+        if other and "a2a" in other:
+            a = other["a2a"]["process"]
+            _log(f"mesh_procs: process mesh all_to_all of "
+                 f"{a['bytes'] / 2**20:.1f} MiB a rank {a['ms']:.3f} ms "
+                 f"({a['gb_s']:.1f} GB/s a rank)")
         eu = result["eager_us"]
         per = (f", {eu['per_card']:.2f} us with one thread per device at "
                f"once" if "per_card" in eu else "")
         _log(f"mesh_procs: host cost per eager op: "
              f"{', '.join(f'{x:.2f}' for x in eu['process_per_card'])} us "
-             f"with one process per device at once, {eu['one_thread']:.2f} "
-             f"us from one thread alone{per}")
+             f"with one process per {result['local']} device(s) at once, "
+             f"{eu['one_thread']:.2f} us from one thread alone{per}")
 
 
 def _args(argv):
@@ -724,6 +814,8 @@ def _args(argv):
                     help="dead rows (default 5%% of the rows)")
     ap.add_argument("--warm", type=int, default=5)
     ap.add_argument("--timeout", type=float, default=RANK_TIMEOUT_S)
+    ap.add_argument("--local", type=int, default=1,
+                    help="cards (shards) a process")
     ap.add_argument("--out", default=None)
     # a rank's own arguments (given by the launcher)
     ap.add_argument("--rank", type=int, default=None)
@@ -755,24 +847,26 @@ def main(argv) -> int:
     cards = [ln.strip() for ln in smi.stdout.strip().splitlines()]
     for ln in cards:
         _log(ln)
+    devs = [f"cuda:{i}" for i in range(n)]
     t0 = time.perf_counter()
     try:
-        result = compare([f"cuda:{i}" for i in range(n)], "nccl",
-                         args.rows_log2, args.fused_rows, args.key_domain,
-                         args.seed, args.warm,
-                         dead=args.dead, timeout=args.timeout)
-    except AssertionError as ex:
+        result = compare(devs, "nccl", args.rows_log2, args.fused_rows,
+                         args.key_domain, args.seed, args.warm,
+                         dead=args.dead, timeout=args.timeout,
+                         local=args.local)
+        if args.local > 1:
+            result["per_process"] = compare(
+                devs, "nccl", args.rows_log2, args.fused_rows,
+                args.key_domain, args.seed, args.warm, dead=args.dead,
+                timeout=args.timeout)
+        result["fail_drill_s"] = fail_drill(devs, "nccl", args.timeout,
+                                            args.local)
+    except (AssertionError, ValueError) as ex:
         _log(f"mesh_procs: FAILED {ex}")
         return 1
-    try:
-        result["fail_drill_s"] = fail_drill(
-            [f"cuda:{i}" for i in range(n)], "nccl", args.timeout)
-    except AssertionError as ex:
-        _log(f"mesh_procs: FAILED {ex}")
-        return 1
-    _log(f"mesh_procs: failure drill: rank {n - 1} raised after one "
-         f"collective; all {n} ranks exited non-zero within "
-         f"{result['fail_drill_s']:.2f} s")
+    _log(f"mesh_procs: failure drill: shard {n - 1} raised after one "
+         f"collective; all {n // args.local} processes exited non-zero "
+         f"within {result['fail_drill_s']:.2f} s")
     # whether the cards reach each other's memory directly (the thread
     # mesh's copies and NCCL's transports depend on it)
     result["peer_access"] = [[i == j or torch.cuda.can_device_access_peer(

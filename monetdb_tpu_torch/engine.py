@@ -237,6 +237,15 @@ def _decode_column(col) -> list:
     return _decode_np(raw, col.typ, col.sdict)
 
 
+def check_mesh(mesh) -> None:
+    """Raise TypeError unless ``mesh`` is None or a thread mesh: the SPMD
+    path reads every shard's outputs in one process, so a process mesh
+    (one shard a process or several) cannot run SQL."""
+    if mesh is not None and not isinstance(mesh, RowMesh):
+        raise TypeError(f"SQL takes a thread mesh (parallel.row_mesh), "
+                        f"not {mesh!r}")
+
+
 class Engine:
     """SQL in, rows out, on the device that holds ``catalog``'s tensors.
     With a ``mesh`` (a ``parallel.row_mesh`` of more than one shard) fused
@@ -245,10 +254,7 @@ class Engine:
     per shard (exec/fragment.py _run_spmd)."""
 
     def __init__(self, catalog: Catalog, mesh=None, spmd_auto=False):
-        if mesh is not None and not isinstance(mesh, RowMesh):
-            # the SPMD path reads every shard's outputs in one process
-            raise TypeError(f"Engine takes a thread mesh (parallel."
-                            f"row_mesh), not {mesh!r}")
+        check_mesh(mesh)
         self.catalog = catalog
         self.mesh = mesh
         # spmd_auto: the mesh came from the session default (mitosis in

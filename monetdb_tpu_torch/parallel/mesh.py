@@ -11,21 +11,24 @@ kinds:
   mesh's devices may repeat (``[cuda:0] * 8`` runs eight shards on one
   card, and ``["cpu"] * 8`` is the CPU tests' stand-in for the reference's
   eight virtual devices).
-* ``dist.ProcessMesh`` (``parallel/dist.py``): one shard per process, one
-  process per card, the collectives through ``torch.distributed`` (NCCL
-  between cards, gloo on the CPU), as under ``jax.distributed``.  A
-  process sees only its own shard, as a JAX process sees only its
-  addressable shards.
+* ``dist.ProcessMesh`` (``parallel/dist.py``): one or more shards per
+  process (one per local device), the collectives through
+  ``torch.distributed`` (NCCL between cards, gloo on the CPU), as under
+  ``jax.distributed``.  A process sees only its own shards, as a JAX
+  process sees only its addressable shards.
 
 ``run_shards(mesh, fn, inputs, shard_flags)`` runs ``fn(shard_inputs,
 coll)`` once per shard and returns the per-shard outputs in rank order.  On
 a ``RowMesh`` it splits the row-sharded inputs (views of one tensor where a
 shard shares its device, copies otherwise), passes the replicated ones
 through (copied to a shard on another device) and runs each shard on a
-thread of its own.  On a ``ProcessMesh`` it runs this process's shard
-inline: every input is already this rank's (its rows of a sharded input,
-the whole of a replicated one) and is only moved to the rank's device; the
-result is a one-element list.
+thread of its own.  On a ``ProcessMesh`` every input is already this
+process's (its rows of a sharded input, the whole of a replicated one); a
+process with one shard runs it inline, on the caller's thread, over its
+inputs moved to its device, and the result is a one-element list; a
+process with several shards splits its rows across its devices and runs
+each of its shards on a thread, as a ``RowMesh`` does, and returns their
+outputs in local rank order.
 
 ``coll`` (``Collectives``) gives a shard its ``rank`` and the collectives.
 Each takes one tensor or a list / tuple of tensors (one exchange for the
@@ -36,9 +39,10 @@ bit-equal between the two kinds of mesh.  Collective inputs of a thread
 mesh are shared by reference: a shard must not write into a tensor after
 handing it to a collective.
 
-On a ``RowMesh`` a shard that raises aborts the barrier: the other shards
-stop at their next collective, and the caller gets the first exception that
-is not a broken barrier.  A barrier that waits longer than
+On a ``RowMesh`` (and among the local shards of a ``ProcessMesh``) a
+shard that raises aborts the barrier: the other shards stop at their next
+collective, and the caller gets the first exception that is not a broken
+barrier.  A barrier that waits longer than
 ``BARRIER_TIMEOUT_S`` breaks as well, so a deadlock fails the call instead
 of hanging it.  (A ``ProcessMesh`` gives ``torch.distributed`` the same
 timeout; see ``dist.py``.)
@@ -126,6 +130,8 @@ class _Group:
         self.slots = [[None] * n, [None] * n]
         self.lock = threading.Lock()
         self.errors: list = []          # in the order the shards raised
+        # what a process mesh's leader hands its local shards (dist.py)
+        self.result = None
 
 
 def _tree(x):
@@ -237,10 +243,10 @@ def _split(t: torch.Tensor, n: int, devices) -> list:
 
 
 def home_device(mesh) -> torch.device:
-    """Where a row-sharded tensor of ``mesh`` lives: a thread mesh's first
-    device (every shard reads its slice), a process mesh's rank device
-    (the rank's rows only)."""
-    return mesh.devices[0] if isinstance(mesh, RowMesh) else mesh.device
+    """Where a row-sharded tensor of ``mesh`` lives: the mesh's first
+    device (a thread mesh's: every shard reads its slice), a process
+    mesh's first local device (the process's rows only)."""
+    return mesh.devices[0]
 
 
 def _count(colls) -> None:
@@ -251,9 +257,10 @@ def _count(colls) -> None:
 
 
 def _run_here(mesh, fn: Callable, inputs: Sequence[torch.Tensor]) -> list:
-    """This process's shard of a process mesh, on the caller's thread."""
+    """The one shard of a process of a process mesh, on the caller's
+    thread."""
     dev = mesh.device
-    coll = mesh.collectives()
+    coll, = mesh.collectives()
     ins = [t if t.device == dev else t.to(dev) for t in inputs]
     try:
         if dev.type == "cuda":
@@ -271,13 +278,16 @@ def run_shards(mesh, fn: Callable, inputs: Sequence[torch.Tensor],
     thread of its own, and ``shard_flags[i]`` says whether input i is split
     by rows (its length must divide by the mesh size) or given whole to
     every shard.  On a process mesh (``dist.ProcessMesh``) only this
-    process's shard runs, on the caller's thread, over inputs that are
-    already its own (``shard_flags`` is not needed to split them), and the
-    list holds its output alone."""
-    if not isinstance(mesh, RowMesh):
-        return _run_here(mesh, fn, inputs)
+    process's shards run, over inputs that are already its own: one shard
+    on the caller's thread (``shard_flags`` is not needed to split them),
+    and the list holds its output alone; several shards as on a
+    ``RowMesh`` over the process's devices (the sharded inputs split into
+    as many pieces), and the list holds their outputs in local rank
+    order."""
     devs = mesh.devices
     n = len(devs)
+    if not isinstance(mesh, RowMesh) and n == 1:
+        return _run_here(mesh, fn, inputs)
     per = [[] for _ in range(n)]
     for t, sharded in zip(inputs, shard_flags):
         if sharded:
@@ -286,9 +296,15 @@ def run_shards(mesh, fn: Callable, inputs: Sequence[torch.Tensor],
         else:
             for r in range(n):
                 per[r].append(t if t.device == devs[r] else t.to(devs[r]))
-    group = _Group(n, BARRIER_TIMEOUT_S)
+    if isinstance(mesh, RowMesh):
+        group = _Group(n, BARRIER_TIMEOUT_S)
+        colls = [_ThreadCollectives(group, r, devs[r]) for r in range(n)]
+    else:
+        # the leader waits on the other processes for up to the process
+        # group's own timeout while its local shards wait at the barrier
+        group = _Group(n, mesh.timeout + BARRIER_TIMEOUT_S)
+        colls = mesh.collectives(group)
     outs = [None] * n
-    colls = [_ThreadCollectives(group, r, devs[r]) for r in range(n)]
 
     def shard(r: int) -> None:
         coll = colls[r]
@@ -304,7 +320,8 @@ def run_shards(mesh, fn: Callable, inputs: Sequence[torch.Tensor],
             group.barrier.abort()
 
     threads = [threading.Thread(target=shard, args=(r,), daemon=True,
-                                name=f"mesh-shard-{r}") for r in range(n)]
+                                name=f"mesh-shard-{colls[r].rank}")
+               for r in range(n)]
     for t in threads:
         t.start()
     for t in threads:

@@ -8,10 +8,10 @@ two-phase: per-piece partials + a combine step (opt_mergetable.c:15-27,
 BATgroupavg3combine gdk/gdk_aggr.c:2634).
 
 Here: a 1-D row mesh (``parallel/mesh.py``: one thread per shard, or one
-rank per process, ``parallel/dist.py``); on a thread mesh a row-sharded
-column is one tensor padded to a multiple of the shard count, which every
-shard sees a slice of, and on a process mesh each rank holds its own slice;
-the combine step is the mesh's ``psum``.
+or more shards per process, ``parallel/dist.py``); on a thread mesh a
+row-sharded column is one tensor padded to a multiple of the shard count,
+which every shard sees a slice of, and on a process mesh each process holds
+the slices of its own shards; the combine step is the mesh's ``psum``.
 """
 
 from __future__ import annotations
@@ -69,15 +69,18 @@ def shard_array(arr, mesh, fill=0) -> torch.Tensor:
     ``fill``.  On a thread mesh: the whole, placed on the mesh's first
     device (every shard of a one-device mesh reads a view of it;
     ``run_shards`` copies the pieces of a multi-device mesh).  On a process
-    mesh, where every process holds the same global array: this rank's
-    piece, on its device."""
+    mesh, where every process holds the same global array: the pieces of
+    this process's shards, end to end (rows [p * K * c, (p + 1) * K * c)
+    of the padded array for process p of K shards, c rows a shard), on its
+    first device."""
     t = torch.as_tensor(np.asarray(arr)) if not isinstance(
         arr, torch.Tensor) else arr
     n = mesh.size
     k = -(-t.shape[0] // n)
     if not isinstance(mesh, RowMesh):
-        t = t[mesh.rank * k:(mesh.rank + 1) * k]
-        want = k
+        lo = mesh.shards[0] * k
+        t = t[lo:lo + mesh.local * k]
+        want = k * mesh.local
     else:
         want = k * n
     t = t.to(home_device(mesh))

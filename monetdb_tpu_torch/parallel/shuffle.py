@@ -20,10 +20,11 @@ partial row per shard.
 A row-sharded array is one tensor on the mesh's first device whose length
 divides by the shard count (``mitosis.shard_array``); every function here
 takes and returns such tensors.  On a process mesh (``parallel/dist.py``)
-it is this rank's piece instead, and every function takes and returns the
-rank's pieces; ``lane_counts`` gives every rank the whole matrix, so that
-the host decisions taken from it (skew, lane capacity) are the same on
-every rank and every rank posts all-to-alls of one shape.
+it is the pieces of this process's shards instead, end to end on its first
+device, and every function takes and returns those; ``lane_counts`` gives
+every shard the whole matrix, so that the host decisions taken from it
+(skew, lane capacity) are the same on every shard and every shard posts
+all-to-alls of one shape.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def _dest(key, live, ndev: int):
 
 def _gathered(mesh, parts) -> torch.Tensor:
     """Per-shard pieces as one row-sharded tensor on the first device (a
-    process mesh's one piece as it is)."""
+    process's pieces of its own shards; one piece as it is)."""
     dev = home_device(mesh)
     if len(parts) == 1:
         return parts[0].to(dev)

@@ -21,7 +21,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 
 from .dtypes import Kind, SQLType
-from .engine import Engine, Result
+from .engine import Engine, Result, check_mesh
 from .sql import ast as A
 from .sql.binder import BindError, bind_select
 from .sql.parser import parse
@@ -60,6 +60,7 @@ class Session:
                                     None) == "cuda":
             from .parallel import default_mesh
             mesh = default_mesh()
+        check_mesh(mesh)
         self.mesh = mesh
         # authenticated user; None = embedded/admin session (the reference
         # gives monetdbe the admin role the same way)

@@ -1194,3 +1194,18 @@ def test_mesh_engine_on_gpu_matches_cpu(cuda_device, q):
         for x, y in zip(gr, wr):
             assert x == (pytest.approx(y, rel=1e-9)
                          if isinstance(y, float) else y)
+
+
+@pytest.mark.cuda
+def test_hybrid_mesh_on_one_card(cuda_device):
+    """Two processes of two shards each on cuda:0 (host-staged gloo
+    between them, shards handed over by reference inside each): every
+    shard of every primitive exact against numpy and bit-equal to shard g
+    of row_mesh([cuda:0] * 4), with 6 seg_sum64 and 1 q1_grouped_sums
+    launches a shard."""
+    from monetdb_tpu_torch.bench import mesh_procs as MP
+    res = MP.compare(["cuda:0"] * 4, "gloo", 16, 100_003, key_domain=500,
+                     warm=0, dead=100, timeout=60, local=2)
+    assert res["ranks"] == 2 and res["local"] == 2 and not res["differ"]
+    assert res["launches_per_rank"] == [
+        {"seg_sum64": 12, "q1_grouped_sums": 2, "grouped_sum_limbs": 0}] * 2

@@ -551,6 +551,16 @@ PORT_EXPECTED = {
         "row_mesh", "shard_array", "two_phase_sum", "sharded_q1",
         "sharded_q6", "default_mesh", "AXIS"],
     "monetdb_tpu_torch.obs": ["PROFILER", "set_algorithm"],
+    "monetdb_tpu_torch.parallel": [
+        "row_mesh", "shard_array", "two_phase_sum", "sharded_q1",
+        "sharded_q6", "default_mesh", "ProcessMesh", "initialize",
+        "process_index", "process_count", "shutdown"],
+    "monetdb_tpu_torch.parallel.dist": [
+        "initialize", "process_index", "process_count", "shutdown",
+        "ProcessMesh", "DistCollectives"],
+    "monetdb_tpu_torch.bench.microbench": [
+        "uniform", "normal", "zipf", "skewed", "sorted_runs"],
+    "monetdb_tpu_torch.bench.cpu_baseline": ["main"],
 }
 
 

@@ -46,8 +46,15 @@ def test_import_pulls_in_no_jax():
         "from monetdb_tpu_torch.parallel import dist\n"
         "from monetdb_tpu_torch import harness\n"
         "from monetdb_tpu_torch.bench import mesh_procs, mesh_cards\n"
+        "from monetdb_tpu_torch.bench import microbench, cpu_baseline\n"
         "assert parallel.ProcessMesh is dist.ProcessMesh\n"
         "assert parallel.initialize is dist.initialize\n"
+        "assert parallel.shutdown is dist.shutdown\n"
+        "h = parallel.ProcessMesh(2, 1, ['cpu'] * 2, 'gloo')\n"
+        "assert h.size == 4 and list(h.shards) == [2, 3]\n"
+        "assert parallel.shard_array(list(range(8)), h).tolist() == "
+        "[4, 5, 6, 7]\n"
+        "assert microbench.uniform(4, 3, device='cpu').count == 4\n"
         "m = parallel.row_mesh(['cpu'] * 2)\n"
         "t = parallel.shard_array(__import__('numpy').arange(5), m)\n"
         "assert int(shuffle.lane_counts(m, t, t >= 0).sum()) == 6\n"
