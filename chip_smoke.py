@@ -173,10 +173,27 @@ Phases, one or more output lines each, and a line with each phase's time:
              ``streaming_window_sum(w=1000)`` over the 2^27 values: equal
              to numpy, peak device memory within 8 tiles; rows/s.  The
              reference's 1B-row envelope is cut to 2^27 rows for time.
+21. bench  - runs after window primitives (and profile), over the resident
+             SF1 catalog: ``monetdb_tpu_torch.bench.bench.main`` at its
+             full sizes (Q6 and Q1 loops over 24,000,000 rows, seg_sum64's
+             over 23,986,176, the join's 10,000,000 x 100,000,000 keys,
+             the group-by's 100,000,000 rows into 1,000,000 groups, the
+             22 queries), with the plan cache cleared first so that its
+             cold column is cold.  It must return 0; its last JSON line
+             must hold every key of the reference bench.py's line, no null
+             microbench value, 22 measured queries, none failed or
+             skipped; seg_sum64 must launch (main checks 5 an iteration of
+             its loop) and the other two kernels not.  Then one iteration
+             of each of the five loops at the same sizes against numpy
+             (the group-by's every group sum against np.bincount), with 5
+             seg_sum64 launches for the seg_sum64 loop's iteration, and
+             one more iteration of each under ``torch.profiler``: device
+             busy time and the top kernels.
 
 The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12,
-13 (before its SQL, then again before the sharded kernel steps) and 17
-(before its replayed queries, then again before the farm's) and read just
+13 (before its SQL, then again before the sharded kernel steps), 17
+(before its replayed queries, then again before the farm's) and 21
+(before ``main``, then again before each loop's iteration) and read just
 after each; in phases 14 and 15 each process sets its own to 0 just before
 its pass over the primitives and reads them just after, and the processes'
 counts are summed (``launches_procs``, ``launches_hybrid``).  Then one JSON line with each kernel's launches
@@ -187,8 +204,11 @@ Any failure raises and exits non-zero without that line.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import glob
+import inspect
+import io
 import json
 import math
 import os
@@ -208,6 +228,7 @@ import numpy as np
 import torch
 
 from monetdb_tpu_torch import config, harness
+from monetdb_tpu_torch.bench import bench as BENCH
 from monetdb_tpu_torch.bench import mesh_procs as MP
 from monetdb_tpu_torch.bench import tpcds, tpch_oracle
 from monetdb_tpu_torch.bench.tpch_gen import SCHEMA, gen_tpch
@@ -215,7 +236,7 @@ from monetdb_tpu_torch.bench.tpch_load import load_tpch, load_tpch_db
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES
 from monetdb_tpu_torch.column import Column, capacity_for
 from monetdb_tpu_torch.dtypes import BOOL, I64
-from monetdb_tpu_torch.engine import Engine, plan_cache_stats
+from monetdb_tpu_torch.engine import Engine, plan_cache_clear, plan_cache_stats
 from monetdb_tpu_torch.exec import fragment
 from monetdb_tpu_torch.farm import Farm
 from monetdb_tpu_torch.ops import cuda_kernels as CK
@@ -265,6 +286,17 @@ TPCDS_FALLBACKS = ("53", "89", "98")
 #: no integer row; it flatters them, and bytes bound every kernel anyway)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+#: the keys of the reference bench.py's JSON line, and its detail's (the
+#: first ten are the microbenches' values)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL_KEYS = (
+    "q6_ms_per_iter", "q6_mrows_per_s", "q1_ms_per_iter", "q1_mrows_per_s",
+    "q1_pallas_ms_per_iter", "q1_pallas_speedup", "join_gbps",
+    "join_roofline_frac", "groupby_gbps", "groupby_roofline_frac",
+    "hbm_roofline_gbps", "engine_sf1_wall_ms", "engine_sf1_cold_ms",
+    "engine_sf1_skipped", "engine_sf1_failed", "cpu_baseline_engine",
+    "cpu_baseline_sf1_ms", "vs_cpu_baseline_geomean",
+    "vs_cpu_baseline_coverage", "rows")
 
 
 def _log(*a):
@@ -2373,6 +2405,105 @@ def phase_external(dev) -> None:
              f"{peak / tile_bytes:.2f} tiles ({tile_bytes >> 20} MiB each)")
 
 
+def phase_bench(dev, cat, resident: int, seg_entry: dict) -> None:
+    """The port bench at its full sizes over the resident SF1 catalog,
+    then one iteration of each loop against numpy."""
+    sizes = {k: p.default for k, p in
+             inspect.signature(BENCH.main).parameters.items()
+             if p.kind == p.KEYWORD_ONLY and k != "catalog"}
+    plan_cache_clear()
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = BENCH.main(device=dev, catalog=cat)
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    lines = out.getvalue().splitlines()
+    _log(f"bench: {len(lines)} JSON lines, the last: {lines[-1]}")
+    if rc != 0:
+        raise AssertionError(f"bench: main returned {rc}")
+    last = json.loads(lines[-1])
+    d = last["detail"]
+    missing = [k for k in BENCH_KEYS if k not in last] + \
+        [k for k in BENCH_DETAIL_KEYS if k not in d]
+    nulls = [k for k in BENCH_DETAIL_KEYS[:10] if d[k] is None]
+    if missing or nulls or last["value"] is None:
+        raise AssertionError(f"bench: keys missing {missing}, null {nulls}")
+    if d["engine_sf1_failed"] or d["engine_sf1_skipped"] or \
+            len(d["engine_sf1_wall_ms"] or {}) != 22:
+        raise AssertionError("bench: not all 22 queries measured")
+    launches = dict(CK.LAUNCHES)
+    seg_entry["launches_bench"] = launches["seg_sum64"]
+    if launches["q1_grouped_sums"] or launches["grouped_sum_limbs"] or \
+            launches["seg_sum64"] < 5 * 4 * sum(sizes["q1_ks"]):
+        raise AssertionError(f"bench: launches {launches}")
+    _log(f"bench: main returned 0 in {took:.2f} s, peak device memory "
+         f"above the tables {peak / 2**20:.1f} MiB; launches {launches} "
+         f"(seg_sum64: 5 an iteration of its loop, then the queries')")
+    _bench_values(dev, sizes)
+
+
+def _bench_values(dev, sizes: dict) -> None:
+    """One iteration (i = 0) of each bench loop at main's sizes against
+    numpy; 5 seg_sum64 launches for the seg_sum64 loop's and none else."""
+    qa = BENCH.q_columns(sizes["n"])
+    bk, pk = BENCH.join_keys(sizes["nb"], sizes["npr"], sizes["dom"])
+    sid, vals = BENCH.groupby_columns(sizes["ngr"], sizes["nseg"])
+    cases = [
+        ("q6", BENCH.q6_loop, lambda: BENCH.q6_args(qa, dev),
+         lambda: BENCH.q6_numpy(qa, 0)),
+        ("q1", BENCH.q1_loop, lambda: BENCH.q1_args(qa, dev),
+         lambda: BENCH.q1_numpy(qa, 0)),
+        ("q1 seg_sum64", BENCH.seg_loop, lambda: BENCH.seg_args(qa, dev),
+         lambda: BENCH.seg_numpy(qa, 0)),
+        ("join", BENCH.join_loop,
+         lambda: BENCH.join_args(bk, pk, sizes["dom"], dev),
+         lambda: BENCH.join_numpy(bk, pk, 0, sizes["dom"])),
+        ("group-by", BENCH.groupby_loop,
+         lambda: BENCH.groupby_args(sid, vals, sizes["nseg"], dev),
+         lambda: int(BENCH.groupby_numpy(sid, vals, 0, sizes["nseg"]).sum())),
+    ]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, loop, args, want in cases:
+        a = args()
+        _zero_launches()
+        got = int(loop(*a, 1))
+        launched = dict(CK.LAUNCHES)
+        expect = {k: 5 if (loop is BENCH.seg_loop and k == "seg_sum64")
+                  else 0 for k in launched}
+        if launched != expect:
+            raise AssertionError(f"bench {name}: launches {launched}, "
+                                 f"expected {expect}")
+        expected = want()
+        if got != expected:
+            raise AssertionError(f"bench {name}: {got} != numpy {expected}")
+        if loop is BENCH.groupby_loop:
+            sums = BENCH.groupby_sums(*a[:2], 0, sizes["nseg"]).cpu().numpy()
+            if not np.array_equal(sums, BENCH.groupby_numpy(
+                    sid, vals, 0, sizes["nseg"])):
+                raise AssertionError("bench group-by: a group sum differs "
+                                     "from np.bincount")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            int(loop(*a, 1))
+        kernels = sorted(((e.key, e.self_device_time_total, e.count)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda k: -k[1])
+        top = ", ".join(f"{k[:40]} {t / 1e3:.3f} ms x{c}"
+                        for k, t, c in kernels[:4])
+        # the profiler now and then records no device activity at all
+        busy = (f"device busy {sum(k[1] for k in kernels) / 1e3:.3f} ms in "
+                f"{sum(k[2] for k in kernels)} activities, top: {top}"
+                if kernels else "no device activity recorded")
+        _log(f"bench: {name} iteration equal to numpy ({got}); launches "
+             f"{launched}; profiled iteration: {busy}")
+        del a
+
+
 def phase_profile(dev, eng: Engine) -> None:
     """Per query: warm runs under torch.profiler (device busy time and
     kernel count from the CUDA activities, host wall around the runs)."""
@@ -2468,6 +2599,7 @@ def main(argv) -> int:
     _timed("window primitives", phase_window_primitives, dev)
     if "--profile" in argv:
         _timed("profile", phase_profile, dev, eng)
+    _timed("bench", phase_bench, dev, cat, resident, seg)
     del eng, cat
     torch.cuda.empty_cache()
     _timed("tpcds", phase_tpcds, dev, seg)

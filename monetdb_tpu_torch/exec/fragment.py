@@ -80,8 +80,8 @@ from ..plan.exprs import (Between, BinOp, BoolOp, Case, Cast, Cmp, ColRef,
                           Const, Expr, Func, InList, IsNull, Like, Not,
                           Subquery, walk)
 
-__all__ = ["Unsupported", "FragmentResult", "CompiledFragment", "STATS",
-           "stats_inc"]
+__all__ = ["Unsupported", "FragmentResult", "CompiledFragment",
+           "compile_fragment", "run_fragment", "STATS", "stats_inc"]
 
 
 _I64_MIN = np.int64(np.iinfo(np.int64).min)
@@ -3592,3 +3592,16 @@ class CompiledFragment:
                     "usec": int((time.perf_counter() - t0) * 1e6)})
             return result
         raise Unsupported("expanding-join retry limit exceeded")
+
+
+def compile_fragment(catalog, rel: L.Rel, out_names: List[str]):
+    """Lower a plan (no query runs); raises Unsupported for plan shapes
+    outside the compiler."""
+    return CompiledFragment(catalog, rel, out_names)
+
+
+def run_fragment(catalog, rel: L.Rel, out_names: List[str],
+                 events: Optional[list] = None) -> FragmentResult:
+    """One-shot lower + execute (see CompiledFragment; the engine caches
+    the compiled object instead, engine._PLAN_CACHE)."""
+    return CompiledFragment(catalog, rel, out_names).run(events=events)

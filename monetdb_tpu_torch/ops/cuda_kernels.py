@@ -44,11 +44,18 @@ import torch
 
 __all__ = ["seg_sum64", "seg_sum64_plain", "q1_grouped_sums",
            "q1_grouped_sums_plain", "grouped_sum_limbs",
-           "grouped_sum_limbs_plain", "build", "LAUNCHES", "MAX_DOMAIN"]
+           "grouped_sum_limbs_plain", "build", "LAUNCHES", "MAX_DOMAIN",
+           "SEG_SUM_BLOCK"]
 
 #: largest group domain the kernels take (the fragment's one-hot bound,
 #: exec/fragment.py _ONEHOT_MAX)
 MAX_DOMAIN = 128
+
+#: the reference kernel's row block (pallas_kernels.py SEG_SUM_BLOCK): its
+#: inputs' length is a multiple of it.  These kernels take any length; a
+#: caller that cuts its rows to the reference's multiple (the bench) sums
+#: the same rows as the reference.
+SEG_SUM_BLOCK = 16384
 
 #: kernel launches so far, by kernel name (see module docstring)
 LAUNCHES = {"seg_sum64": 0, "q1_grouped_sums": 0, "grouped_sum_limbs": 0}

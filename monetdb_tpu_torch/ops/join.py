@@ -23,7 +23,7 @@ match-offset prefix sum).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,10 +33,15 @@ from .select import materialize
 from .sort import sort_key
 
 __all__ = ["join", "leftjoin", "outerjoin", "semijoin", "antijoin",
-           "markjoin"]
+           "markjoin", "JoinResult"]
 
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
+
+
+class JoinResult(Tuple):
+    """The reference package's public tuple type of this module (no
+    function of either package returns it)."""
 
 
 # ---------------------------------------------------------------------------

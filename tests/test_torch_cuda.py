@@ -1209,3 +1209,47 @@ def test_hybrid_mesh_on_one_card(cuda_device):
     assert res["ranks"] == 2 and res["local"] == 2 and not res["differ"]
     assert res["launches_per_rank"] == [
         {"seg_sum64": 12, "q1_grouped_sums": 2, "grouped_sum_limbs": 0}] * 2
+
+
+@pytest.mark.cuda
+def test_bench_loops_on_gpu_match_numpy(cuda_device):
+    """The bench's five loops (bench/bench.py) at 2^20 rows on the card:
+    one iteration of each under torch's sync debug mode "error" (no
+    operation of a loop waits for the device, so the slope is a device
+    time), then K = 2 against numpy, 5 seg_sum64 launches an iteration
+    and no other kernel's."""
+    from monetdb_tpu_torch.bench import bench as B
+    n, nseg, dom = 1 << 20, 1 << 14, 1 << 20
+    qa = B.q_columns(n)
+    bk, pk = B.join_keys(1 << 17, n, dom)
+    sid, vals = B.groupby_columns(n, nseg)
+    cases = [
+        (B.q6_loop, B.q6_args(qa, cuda_device),
+         lambda i: B.q6_numpy(qa, i)),
+        (B.q1_loop, B.q1_args(qa, cuda_device),
+         lambda i: B.q1_numpy(qa, i)),
+        (B.seg_loop, B.seg_args(qa, cuda_device),
+         lambda i: B.seg_numpy(qa, i)),
+        (B.join_loop, B.join_args(bk, pk, dom, cuda_device),
+         lambda i: B.join_numpy(bk, pk, i, dom)),
+        (B.groupby_loop, B.groupby_args(sid, vals, nseg, cuda_device),
+         lambda i: int(B.groupby_numpy(sid, vals, i, nseg).sum())),
+    ]
+    CK.build()
+    torch.cuda.synchronize()
+    for loop, args, want in cases:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one = loop(*args, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(one) == want(0), loop.__name__
+        before = dict(CK.LAUNCHES)
+        two = loop(*args, 2)
+        launched = {k: CK.LAUNCHES[k] - before[k] for k in before}
+        assert int(two) == want(0) + want(1), loop.__name__
+        assert launched == {"seg_sum64": 10 if loop is B.seg_loop else 0,
+                            "q1_grouped_sums": 0, "grouped_sum_limbs": 0}
+    got = B.groupby_sums(*args[:2], 3, nseg)
+    assert np.array_equal(got.cpu().numpy(),
+                          B.groupby_numpy(sid, vals, 3, nseg))

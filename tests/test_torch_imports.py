@@ -47,6 +47,8 @@ def test_import_pulls_in_no_jax():
         "from monetdb_tpu_torch import harness\n"
         "from monetdb_tpu_torch.bench import mesh_procs, mesh_cards\n"
         "from monetdb_tpu_torch.bench import microbench, cpu_baseline\n"
+        "from monetdb_tpu_torch.bench import bench\n"
+        "assert bench.main.__defaults__ == ('cuda:0',)\n"
         "assert parallel.ProcessMesh is dist.ProcessMesh\n"
         "assert parallel.initialize is dist.initialize\n"
         "assert parallel.shutdown is dist.shutdown\n"
