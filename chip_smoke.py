@@ -63,12 +63,29 @@ Phases, one or more output lines each, and a line with each phase's time:
              and Q98 must count as fallbacks and the other twelve not.  Q53
              selects no row at this scale, so its deviation threshold is
              lowered from 10% to 1% where sqlite3 finds none.
-10. profile - only with ``--profile``: per query, 5 warm runs under
+10. ssbm   - ``load_ssbm(6,000,000)`` (SSB SF1's lineorder) on the card
+             and the 13 SSBM queries through ``Engine.query``, one cold and
+             5 warm runs each, rows equal to the numpy oracle
+             (bench/ssbm_oracle.py) exactly and no fallback.  Prints per
+             query the times, peak device memory above the tables,
+             seg_sum64 launches of each run (at least one a run on Q1.1,
+             Q1.2, Q1.3: their scalar sum is one-hot), the capacity and
+             uniqueness retries and the slots of each dense group-by.
+             Then the 13 with ``fragment_exec`` off (the executor), one
+             cold and 2 warm runs, equal to the same oracle.
+11. envelope - the JAX package's 100,000,000-row envelope
+             (tests/test_tpch_sf1.py, seed 11) on the card: a grouped
+             count / min / max over 8 groups, a top 5 and a window max
+             over each group filtered to its maximum, equal to numpy; the
+             window must count as exactly one fallback, the others none.
+             Prints each statement's wall, seg_sum64 launches, retries
+             and the peak device memory above the table.
+12. profile - only with ``--profile``: per query, 5 warm runs under
              ``torch.profiler``: host wall, device busy time, kernels per
              query, device idle share, host waits on the stream per query,
              top kernels by device time; and the host's cost per eager op;
              then the same for the executor (3 warm runs).
-11. session - the SQL front door: ``load_tpch_db(SF, data=...)`` on the
+13. session - the SQL front door: ``load_tpch_db(SF, data=...)`` on the
              card and the 22 queries through ``Session.sql``, one cold and
              3 warm runs each: rows equal to the oracle, no fallback, per
              warm run as many seg_sum64 launches as the slice phase's run
@@ -76,7 +93,7 @@ Phases, one or more output lines each, and a line with each phase's time:
              run), warm runs served by the session's plan cache, every
              table materialized on the card once.  Prints the Session
              medians beside the Engine's.
-12. server - a ``Server`` over that store: one ``Client`` runs the 22
+14. server - a ``Server`` over that store: one ``Client`` runs the 22
              queries in JSON and in columnar mode (rows equal to the oracle,
              seg_sum64 launches a query equal to the session phase's warm
              run; wall over the wire beside the Session median), then 8
@@ -88,7 +105,7 @@ Phases, one or more output lines each, and a line with each phase's time:
              card, with a shipped predicate, against the local table; TLS
              with a throwaway certificate (when openssl is there);
              challenge-response auth.
-13. spmd   - the SPMD row mesh: ``row_mesh([cuda:0] * 8)``, eight shards
+15. spmd   - the SPMD row mesh: ``row_mesh([cuda:0] * 8)``, eight shards
              of the one card, each on a thread of its own.  The 22 queries
              through ``Session(db, mesh=mesh).sql`` over the session
              phase's store at the default ``spmd_*`` thresholds, one cold
@@ -106,7 +123,7 @@ Phases, one or more output lines each, and a line with each phase's time:
              Q1 sums, with 8 q1_grouped_sums launches a call; ``lane_counts``,
              ``dist_group_sum``, ``dist_group_sum_auto`` and ``dist_fk_join``
              over 2^23 int64 rows, uniform and Zipf(2) keys, equal to numpy.
-14. procs  - the process mesh (parallel/dist.py): 2 ranks, each a process
+16. procs  - the process mesh (parallel/dist.py): 2 ranks, each a process
              of its own on the one card, joined by gloo with every
              collective staged through host memory (NCCL refuses two ranks
              on one card); bench/mesh_procs.py: each rank makes the same
@@ -121,7 +138,7 @@ Phases, one or more output lines each, and a line with each phase's time:
              walls of both meshes, collectives and bytes a rank.  Then a
              failure drill: one rank raises after a collective and every
              rank must exit non-zero.
-15. hybrid - the hybrid mesh (parallel/dist.py with several shards a
+17. hybrid - the hybrid mesh (parallel/dist.py with several shards a
              process): 2 processes of 2 shards each on the one card, a
              global mesh of 4, host-staged gloo between the processes and
              the shards handed over by reference inside each; the same
@@ -133,11 +150,11 @@ Phases, one or more output lines each, and a line with each phase's time:
              parts apart.  Then a failure drill: the last local shard
              raises after a collective and both processes must exit
              non-zero.
-16. harness - monetdb_tpu_torch/harness.py: ``entry()`` on the card equal
+18. harness - monetdb_tpu_torch/harness.py: ``entry()`` on the card equal
              to the CPU, ``dryrun_multichip(8)`` on ``[cuda:0] * 8`` (the
              22 queries at SF0.002 against one device, sharded_q1 / q6,
              the shuffles; it raises on a failed check).
-17. durable - a store on local disk under $TMPDIR at SF1: the eight tables
+19. durable - a store on local disk under $TMPDIR at SF1: the eight tables
              made by SQL DDL, loaded by COPY BINARY (one .npy per numeric
              column, one text file per string column) and ``orders`` by
              COPY INTO from a CSV through the native parser; checkpoint;
@@ -155,25 +172,25 @@ Phases, one or more output lines each, and a line with each phase's time:
              card: the 22 queries through its proxy (oracle over the
              changed arrays), status, stop (must checkpoint), snapshot,
              restore as ``db2`` and a ``Funnel`` counting lineitem in both.
-18. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
+20. sqllogic - tests/sqllogic/*.test and the pinned reference corpus
              (tests/sqllogic/ref, held to REF_LEDGER.md with the ledger
              generator's CHAINS) through ``SqlLogicRunner(Session(
              Database()))`` on the card: every pass file passes, every
              known-fail fails.
-19. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
+21. geom   - 1,000,000 seeded points as WKT, loaded by COPY; point in
              polygon (64 vertices with a hole; a multipolygon), distance
              sums to a polygon, multipolygon, linestring and point,
              geographic DWithin, coordinate sums, st_area over 1,000
              polygons: counts exactly and floats to rel 1e-9 against numpy
              (even-odd ray cast, segment distance, haversine, shoelace);
              peak device memory per query.
-20. external - ``external_sort`` of 2^27 seeded int64 (ascending,
+22. external - ``external_sort`` of 2^27 seeded int64 (ascending,
              descending) and of 2^26 values that are 90% one value, in
              tiles of 2^24 rows; ``streaming_cumsum`` and
              ``streaming_window_sum(w=1000)`` over the 2^27 values: equal
              to numpy, peak device memory within 8 tiles; rows/s.  The
              reference's 1B-row envelope is cut to 2^27 rows for time.
-21. bench  - runs after window primitives (and profile), over the resident
+23. bench  - runs after window primitives (and profile), over the resident
              SF1 catalog: ``monetdb_tpu_torch.bench.bench.main`` at its
              full sizes (Q6 and Q1 loops over 24,000,000 rows, seg_sum64's
              over 23,986,176, the join's 10,000,000 x 100,000,000 keys,
@@ -190,11 +207,12 @@ Phases, one or more output lines each, and a line with each phase's time:
              one more iteration of each under ``torch.profiler``: device
              busy time and the top kernels.
 
-The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 11, 12,
-13 (before its SQL, then again before the sharded kernel steps), 17
-(before its replayed queries, then again before the farm's) and 21
-(before ``main``, then again before each loop's iteration) and read just
-after each; in phases 14 and 15 each process sets its own to 0 just before
+The launch counts are set to 0 just before phases 5, 6, 7, 8, 9, 10
+(then again before its executor pass), 11, 13, 14, 15 (before its SQL,
+then again before the sharded kernel steps), 19 (before its replayed
+queries, then again before the farm's) and 23 (before ``main``, then
+again before each loop's iteration) and read just after each; in phases
+16 and 17 each process sets its own to 0 just before
 its pass over the primitives and reads them just after, and the processes'
 counts are summed (``launches_procs``, ``launches_hybrid``).  Then one JSON line with each kernel's launches
 on its path, error, times and bound, and as the last line
@@ -230,12 +248,12 @@ import torch
 from monetdb_tpu_torch import config, harness
 from monetdb_tpu_torch.bench import bench as BENCH
 from monetdb_tpu_torch.bench import mesh_procs as MP
-from monetdb_tpu_torch.bench import tpcds, tpch_oracle
+from monetdb_tpu_torch.bench import ssbm, ssbm_oracle, tpcds, tpch_oracle
 from monetdb_tpu_torch.bench.tpch_gen import SCHEMA, gen_tpch
 from monetdb_tpu_torch.bench.tpch_load import load_tpch, load_tpch_db
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES
 from monetdb_tpu_torch.column import Column, capacity_for
-from monetdb_tpu_torch.dtypes import BOOL, I64
+from monetdb_tpu_torch.dtypes import BOOL, I32, I64
 from monetdb_tpu_torch.engine import Engine, plan_cache_clear, plan_cache_stats
 from monetdb_tpu_torch.exec import fragment
 from monetdb_tpu_torch.farm import Farm
@@ -250,6 +268,7 @@ from monetdb_tpu_torch.parallel import shuffle as SH
 from monetdb_tpu_torch.server import Client, ColumnarResult, Server
 from monetdb_tpu_torch.session import Session
 from monetdb_tpu_torch.storage import Database, csv_native
+from monetdb_tpu_torch.table import Catalog, Table
 from monetdb_tpu_torch.testing import SqlLogicRunner
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -280,6 +299,14 @@ EXEC_RTOL = 1e-9
 #: TPC-DS SF1's store_sales row count; the generator scales the dimensions
 TPCDS_ROWS = 2_880_404
 TPCDS_FALLBACKS = ("53", "89", "98")
+#: SSB's SF1: lineorder = SF x 6,000,000 rows (O'Neil et al., Star Schema
+#: Benchmark, rev. 3, section 3); the generator keeps its dimension ratios
+SSBM_ROWS = 6_000_000
+#: SSBM queries whose scalar integer sum is one segment (one-hot)
+SSBM_MUST_LAUNCH = ("1.1", "1.2", "1.3")
+#: the JAX package's envelope (tests/test_tpch_sf1.py): 100,000,000 rows
+#: of (g, k), seed 11
+ENVELOPE_ROWS = 100_000_000
 #: published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: rate, and the float32 rate outside the tensor cores, taken here as the
 #: rate of the integer adds and multiplies these kernels do (the sheet has
@@ -1071,6 +1098,178 @@ def phase_tpcds(dev, seg_entry: dict) -> None:
     seg_entry["launches_tpcds"] = CK.LAUNCHES["seg_sum64"]
     if seg_entry["launches_tpcds"] <= 0:
         raise AssertionError("the TPC-DS fragments launched no seg_sum64")
+
+def _dense_slots(eng: Engine, sql: str) -> list:
+    """The slot count of every dense group-by (``r_groupby_dense``) in the
+    fragment a statement lowers to (with the capacity memo applied)."""
+    rel, cols = eng.plan(sql)
+    compiled = fragment.compile_fragment(eng.catalog, rel,
+                                         [c.name for c in cols])
+    slots, todo = [], [compiled.rel_ir]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, tuple):
+            if node and node[0] in ("groupby_dense", "groupby_dense_spmd"):
+                slots.append(node[4])
+            todo.extend(node)
+    return slots
+
+
+def _ssbm_same(qid: str, got: list, want: list) -> bool:
+    if qid not in ssbm_oracle.ORDERED:
+        got, want = sorted(got, key=str), sorted(want, key=str)
+    return got == want
+
+
+def phase_ssbm(dev, seg_entry: dict) -> None:
+    """The 13 SSBM queries at SF1 through the fragment, then the
+    executor, against the numpy oracle."""
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated(dev)
+    cat, data = ssbm.load_ssbm(SSBM_ROWS, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    _log(f"ssbm: load_ssbm({SSBM_ROWS}, device={dev}) "
+         f"{time.perf_counter() - t0:.2f} s; "
+         + ", ".join(f"{t} {cat.get(t).count}" for t in data)
+         + f" rows; tables resident {(resident - base) / 2**20:.1f} MiB")
+    t0 = time.perf_counter()
+    want = ssbm_oracle.expected(data)
+    _log(f"ssbm: numpy oracle {time.perf_counter() - t0:.2f} s, rows "
+         + ", ".join(f"Q{q} {len(r)}" for q, r in sorted(want.items())))
+    eng = Engine(cat)
+    _zero_launches()                    # the SSBM path starts here
+    for qid in sorted(ssbm.QUERIES):
+        sql = ssbm.QUERIES[qid]
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats0 = dict(fragment.STATS)
+        times, per_run = [], []
+        for i in range(1 + WARM_RUNS):
+            last = CK.LAUNCHES["seg_sum64"]
+            t0 = time.perf_counter()
+            got = list(eng.query(sql).rows)
+            times.append(time.perf_counter() - t0)
+            per_run.append(CK.LAUNCHES["seg_sum64"] - last)
+            if i == 0:
+                rows = got
+            elif got != rows:
+                raise AssertionError(f"ssbm Q{qid}: warm rows differ")
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        fell = fragment.STATS["fallbacks"] - stats0["fallbacks"]
+        if fell or not _ssbm_same(qid, rows, want[qid]):
+            raise AssertionError(
+                f"ssbm Q{qid}: {fell} fallbacks; {len(rows)} vs "
+                f"{len(want[qid])} rows; {rows[:3]} vs {want[qid][:3]}")
+        if qid in SSBM_MUST_LAUNCH and min(per_run) <= 0:
+            raise AssertionError(f"ssbm Q{qid}: seg_sum64 launches a run "
+                                 f"{per_run}")
+        slots = _dense_slots(eng, sql)
+        _log(f"ssbm: Q{qid} rows={len(rows)} equal to oracle; fragment; "
+             f"cold {times[0] * 1e3:.1f} ms, warm "
+             f"{', '.join(f'{w * 1e3:.2f}' for w in times[1:])} ms "
+             f"(median {statistics.median(times[1:]) * 1e3:.2f} ms); "
+             f"seg_sum64 launches a run {per_run}; cap_retries "
+             f"{fragment.STATS['cap_retries'] - stats0['cap_retries']}, "
+             f"uniq_retries "
+             f"{fragment.STATS['uniq_retries'] - stats0['uniq_retries']}; "
+             f"groupby_dense slots {slots or 'none'}; peak device memory "
+             f"above the tables {peak / 2**20:.1f} MiB")
+    seg_entry["launches_ssbm"] = CK.LAUNCHES["seg_sum64"]
+    _zero_launches()
+    config.set("fragment_exec", False)
+    try:
+        for qid in sorted(ssbm.QUERIES):
+            sql = ssbm.QUERIES[qid]
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs0 = fragment.STATS["runs"]
+            times = []
+            for i in range(1 + EXEC_WARM_RUNS):
+                t0 = time.perf_counter()
+                got = list(eng.query(sql).rows)
+                times.append(time.perf_counter() - t0)
+                if not _ssbm_same(qid, got, want[qid]):
+                    raise AssertionError(
+                        f"ssbm executor Q{qid} != oracle: {len(got)} vs "
+                        f"{len(want[qid])} rows; {got[:3]} vs "
+                        f"{want[qid][:3]}")
+            if fragment.STATS["runs"] != runs0:
+                raise AssertionError(f"ssbm executor Q{qid} ran a fragment")
+            peak = torch.cuda.max_memory_allocated(dev) - resident
+            _log(f"ssbm: Q{qid} rows={len(got)} equal to oracle; executor; "
+                 f"cold {times[0] * 1e3:.1f} ms, warm "
+                 f"{', '.join(f'{w * 1e3:.2f}' for w in times[1:])} ms; "
+                 f"peak device memory above the tables "
+                 f"{peak / 2**20:.1f} MiB")
+    finally:
+        config.reset("fragment_exec")
+    _no_launches("the SSBM executor pass")
+
+
+def phase_envelope(dev, seg_entry: dict) -> None:
+    """The JAX package's 100 M-row envelope (tests/test_tpch_sf1.py): a
+    grouped aggregate, a top-k and a window (which falls back to the
+    executor) over 100,000,000 rows on the card, against numpy."""
+    n = ENVELOPE_ROWS
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, 1 << 30, n).astype(np.int64)
+    g = (k & 7).astype(np.int32)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_groups, want_win = [], []
+    for gi in range(8):
+        part = k[g == gi]
+        mx = int(part.max())
+        want_groups.append((gi, len(part), int(part.min()), mx))
+        # one row for each row of the group that holds its maximum
+        want_win += [(gi, mx)] * int((part == mx).sum())
+    del part
+    want_top = [(int(v),) for v in
+                sorted(np.partition(k, n - 5)[n - 5:], reverse=True)]
+    t_np = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    cat = Catalog()
+    cat.add(Table.from_dict("big", {
+        "g": Column.from_numpy(g, I32, device=dev),
+        "k": Column.from_numpy(k, I64, device=dev)}))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    _log(f"envelope: {n} rows generated in {t_gen:.2f} s, numpy oracle "
+         f"{t_np:.2f} s, uploaded in {time.perf_counter() - t0:.2f} s; "
+         f"table resident {(resident - base) / 2**20:.1f} MiB")
+    del g, k
+    eng = Engine(cat)
+    _zero_launches()                    # the envelope's path starts here
+    for label, sql, want, falls in (
+            ("group-by", "select g, count(*), min(k), max(k) from big "
+             "group by g order by g", want_groups, 0),
+            ("top-k", "select k from big order by k desc limit 5",
+             want_top, 0),
+            ("window", "select g, mx from (select g, k, max(k) over "
+             "(partition by g) as mx from big) where k = mx order by g",
+             want_win, 1)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats0 = dict(fragment.STATS)
+        before = CK.LAUNCHES["seg_sum64"]
+        t0 = time.perf_counter()
+        rows = list(eng.query(sql).rows)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        fell = fragment.STATS["fallbacks"] - stats0["fallbacks"]
+        if rows != want or fell != falls:
+            raise AssertionError(f"envelope {label}: {fell} fallbacks "
+                                 f"(expected {falls}); {rows} vs {want}")
+        _log(f"envelope: {label} over {n} rows equal to numpy; "
+             f"{'executor (fallback)' if falls else 'fragment'}; "
+             f"{wall:.3f} s; seg_sum64 launches "
+             f"{CK.LAUNCHES['seg_sum64'] - before}; cap_retries "
+             f"{fragment.STATS['cap_retries'] - stats0['cap_retries']}, "
+             f"uniq_retries "
+             f"{fragment.STATS['uniq_retries'] - stats0['uniq_retries']}; "
+             f"peak device memory above the table {peak / 2**30:.2f} GiB")
+    seg_entry["launches_envelope"] = CK.LAUNCHES["seg_sum64"]
+
 
 # ---------------------------------------------------------------------------
 # Session and storage: the SQL front door over a store, in memory and on
@@ -2603,6 +2802,11 @@ def main(argv) -> int:
     del eng, cat
     torch.cuda.empty_cache()
     _timed("tpcds", phase_tpcds, dev, seg)
+    torch.cuda.empty_cache()
+    _timed("ssbm", phase_ssbm, dev, seg)
+    torch.cuda.empty_cache()
+    _timed("envelope", phase_envelope, dev, seg)
+    torch.cuda.empty_cache()
     db, sess_launches, sess_medians = _timed(
         "session", phase_session, dev, data, want, frag, seg)
     _timed("server", phase_server, dev, db, data, want, sess_launches,

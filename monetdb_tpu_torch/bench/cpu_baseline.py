@@ -106,5 +106,11 @@ def main() -> None:
         print(f"| q{qn} | {warm_ms[qn]} |")
 
 
+def sqlite_interrupted():
+    """The exception sqlite3 raises when a query is interrupted (the
+    per-query cap of ``main``)."""
+    return sqlite3.OperationalError
+
+
 if __name__ == "__main__":
     main()

@@ -145,8 +145,8 @@ def _payloads_load(path: str):
     return enc
 
 
-def load_tpch(sf: float = 0.01, *, device="cuda",
-              cache: bool = True) -> Catalog:
+def load_tpch(sf: float = 0.01, cache: bool = True, *,
+              device="cuda") -> Catalog:
     """TPC-H catalog at scale factor sf with every column on ``device``:
     the card unless the caller names another device (without a card the
     default raises torch's own error; nothing falls back to the CPU).

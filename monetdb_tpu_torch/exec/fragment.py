@@ -3504,8 +3504,9 @@ class CompiledFragment:
             return FragmentResult(n, arrs, self.pts, self.wide)
         raise Unsupported("expanding-join retry limit exceeded")
 
-    def run(self, events: Optional[list] = None, stat: str = "runs",
-            mesh=None, spmd_require_min: bool = False) -> FragmentResult:
+    def run(self, events: Optional[list] = None, mesh=None,
+            spmd_require_min: bool = False, *,
+            stat: str = "runs") -> FragmentResult:
         """Execute on the device of the inputs.  One host read of the
         error code, count and totals per attempt, plus one re-lowered
         retry per newly discovered compaction / group-bucket overflow
