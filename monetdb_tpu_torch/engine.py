@@ -25,6 +25,7 @@ from .dtypes import Kind, SQLType
 from . import config
 from .exec.executor import ExecError, Executor
 from .exec.fragment import CompiledFragment, Unsupported, stats_inc
+from .obs.profiler import PROFILER
 from .parallel.mesh import RowMesh
 from .sql.binder import bind_select
 from .table import Catalog
@@ -90,17 +91,21 @@ def plan_cache_stats() -> dict:
 
 class _LazyRows(list):
     """Row tuples materialized on first access (the reference's columnar
-    result path builds python tuples only when asked)."""
+    result path builds python tuples only when asked), inside the
+    profiler's ``result.decode`` span of query ``query``."""
 
-    def __init__(self, fn, n: int):
+    def __init__(self, fn, n: int, query=None):
         super().__init__()
         self._fn = fn
         self._n = n
+        self._query = query
 
     def _force(self):
         if self._fn is not None:
             fn, self._fn = self._fn, None
-            self[:] = fn()
+            with PROFILER.span("result.decode", "decode_ns",
+                               query=self._query):
+                self[:] = fn()
         return self
 
     def __len__(self):
@@ -270,14 +275,15 @@ class Engine:
         """Bind + lower once per (SQL text, catalog snapshot) - the
         reference's query cache (sql_qc.c qc entries keyed by query text,
         invalidated on DDL)."""
-        with _PLAN_LOCK:
-            entries = _PLAN_CACHE.get(sql)
-            if entries is not None:
-                _PLAN_CACHE.move_to_end(sql)
-                for e in entries:
-                    if _plan_valid(e, self.catalog):
-                        return e
-        rel, out_cols = bind_select(self.catalog, sql)
+        with PROFILER.span("sql.bind", "bind_ns"):
+            with _PLAN_LOCK:
+                entries = _PLAN_CACHE.get(sql)
+                if entries is not None:
+                    _PLAN_CACHE.move_to_end(sql)
+                    for e in entries:
+                        if _plan_valid(e, self.catalog):
+                            return e
+            rel, out_cols = bind_select(self.catalog, sql)
         fragment = unsupported = None
         frag_enabled = bool(config.get("fragment_exec"))
         if frag_enabled:
@@ -307,11 +313,16 @@ class Engine:
         return self.query_stmt(sql, trace=trace)
 
     def query_stmt(self, sql_or_stmt, trace: bool = False) -> Result:
-        if isinstance(sql_or_stmt, str):
-            plan = self._cached_plan(sql_or_stmt)
-            return self._execute_cached(plan, trace=trace)
-        rel, out_cols = bind_select(self.catalog, sql_or_stmt)
-        return self.execute_plan(rel, out_cols, trace=trace)
+        """The profiler's ``engine.query`` span; it records under
+        ``trace``."""
+        with PROFILER.record(trace), \
+                PROFILER.span("engine.query", "sql_ns", root=True):
+            if isinstance(sql_or_stmt, str):
+                plan = self._cached_plan(sql_or_stmt)
+                return self._execute_cached(plan, trace=trace)
+            with PROFILER.span("sql.bind", "bind_ns"):
+                rel, out_cols = bind_select(self.catalog, sql_or_stmt)
+            return self.execute_plan(rel, out_cols, trace=trace)
 
     def _execute_cached(self, plan: _CachedPlan, trace: bool) -> Result:
         if plan.fragment is not None and bool(config.get("fragment_exec")):
@@ -332,7 +343,9 @@ class Engine:
         (sql/backends/monet5/sql_execute.c:61) and measures the path that
         actually runs: fragment plans emit per-fragment events, fallback
         plans per-operator events."""
-        if bool(config.get("fragment_exec")):
+        with PROFILER.record(trace):
+            if not bool(config.get("fragment_exec")):
+                return self._run_executor(rel, out_cols, trace=trace)
             why = None
             try:
                 fragment = CompiledFragment(self.catalog, rel,
@@ -344,25 +357,27 @@ class Engine:
                 if res is not None:
                     return res
             return self._run_executor(rel, out_cols, trace=trace, why=why)
-        return self._run_executor(rel, out_cols, trace=trace)
 
     def _run_fragment(self, fragment, out_cols,
                       trace: bool) -> Optional[Result]:
-        """Run a lowered fragment; None = fall back to the executor."""
+        """Run a lowered fragment; None = fall back to the executor.  The
+        TRACE events are the views of the fragment's lowering span and of
+        this run's span (the profiler records under ``trace``)."""
         from .sql.syscat import CURRENT_QUERY, QUEUE
-        events = [] if trace else None
         names = [getattr(c, "display", None) or c.name for c in out_cols]
-        if trace:
-            events.append({"op": "fragment.lower",
-                           "usec": int(fragment.lower_ms * 1e3)})
         QUEUE.check(CURRENT_QUERY.tag)
+        here = PROFILER.current()
         try:
-            fr = fragment.run(events=events, mesh=self.mesh,
+            fr = fragment.run(mesh=self.mesh,
                               spmd_require_min=self.spmd_auto)
         except Unsupported:
             stats_inc("fallbacks")
             return None
         QUEUE.check(CURRENT_QUERY.tag)
+        events = None
+        if trace:
+            events = [fragment.lower_span.view(),
+                      PROFILER.last_child(here, "fragment.run").view()]
 
         def make_rows():
             decoded = [
@@ -377,27 +392,34 @@ class Engine:
         if not fr.wide:
             raw = [(np.asarray(a[:fr.count]), pt.typ, pt.sdict)
                    for a, pt in zip(fr.arrays, fr.pts)]
-        return Result(names, [c.typ for c in out_cols],
-                      _LazyRows(make_rows, fr.count), trace=events, raw=raw)
+        rows = _LazyRows(make_rows, fr.count,
+                         None if here is None else here.query)
+        return Result(names, [c.typ for c in out_cols], rows, trace=events,
+                      raw=raw)
 
     def _run_executor(self, rel, out_cols, trace: bool = False,
                       why: Optional[str] = None) -> Result:
-        from .obs import PROFILER
+        """The op-at-a-time executor; with ``trace`` its per-operator
+        events are the TRACE events."""
         if why is not None:
             stats_inc("fallbacks")
         events = None
         if trace:
-            PROFILER.start()
+            was = PROFILER.enabled
+            PROFILER.enabled, PROFILER.events = True, []
             if why is not None:
                 PROFILER.events.append({"op": "fragment.fallback",
                                         "reason": why})
         try:
-            frame = Executor(self.catalog).run(rel)
+            with PROFILER.span("executor.run", "executor_ns"):
+                frame = Executor(self.catalog).run(rel)
         finally:
             if trace:
-                events = PROFILER.stop()
+                events, PROFILER.enabled = PROFILER.events, was
         names = [getattr(c, "display", None) or c.name for c in out_cols]
-        cols = [frame.get("#out", c.name) for c in out_cols]
-        decoded = [_decode_column(c) for c in cols]
-        rows = [tuple(d[i] for d in decoded) for i in range(frame.count)]
+        with PROFILER.span("result.decode", "decode_ns"):
+            cols = [frame.get("#out", c.name) for c in out_cols]
+            decoded = [_decode_column(c) for c in cols]
+            rows = [tuple(d[i] for d in decoded)
+                    for i in range(frame.count)]
         return Result(names, [c.typ for c in out_cols], rows, trace=events)

@@ -56,7 +56,6 @@ import datetime
 import os
 import tempfile
 import threading
-import time
 from decimal import Decimal as PyDecimal
 from typing import Dict, List, Optional, Tuple
 
@@ -71,6 +70,7 @@ from ..ops._tensor import (catalog_device, idiv as _idiv, irem as _irem,
                            lexsort as _lexsort, nil_const as _nil_const,
                            nilm as _nilm_arr, npdt as _npdt,
                            set_drop as _set_drop, tdt as _tdt)
+from ..obs.profiler import PROFILER
 from ..ops.cuda_kernels import seg_sum64
 from ..ops.sort import sort_key
 from ..parallel.mesh import run_shards
@@ -255,6 +255,13 @@ class Lowering:
         self.input_tables.append(None)
         self._input_ids[k] = idx
         return idx
+
+    @staticmethod
+    def _dict_span(*values):
+        """The span of a host map over string dictionary ``values`` (the
+        lut's upload included), counting the values mapped."""
+        return PROFILER.span("lower.dict", "dict_ns",
+                             count=("dict_values", sum(map(len, values))))
 
     def _add_lut(self, np_arr: np.ndarray) -> int:
         idx = len(self.inputs)
@@ -973,6 +980,7 @@ class Lowering:
         col = frame.get("#out", name)
         if frame.count == 0:
             return self._lit(HScalar(None, col.typ))
+        stats_inc("host_reads")
         v = col.data[0].cpu().numpy()
         if col.typ.np_dtype.kind == "f":
             fv = float(v)
@@ -996,32 +1004,36 @@ class Lowering:
             raise Unsupported("unbound subquery")
         if e.kind != "scalar":
             raise Unsupported(f"{e.kind} subquery in fragment expression")
-        _tag, rel, scols = e.select
-        try:
-            fr = CompiledFragment(self.catalog, rel,
-                                  [scols[0].name]).run(stat="subquery_runs")
-        except Unsupported:
-            return self._subquery_executor(rel, scols[0].name)
-        typ = fr.pts[0].typ
-        if fr.count == 0:
-            return self._lit(HScalar(None, typ))
-        v = fr.arrays[0][0]
-        if typ.np_dtype.kind == "f":
-            fv = float(v)
-            return self._lit(HScalar(None if np.isnan(fv) else fv, typ))
-        iv = int(v)
-        if 0 in fr.wide:
-            # a bare wide sum: nil rides in the low limb; beyond int64 is
-            # the overflow a narrowing expression would raise
-            if iv != _I64_MIN_PY:
-                iv += int(fr.arrays[fr.wide[0]][0]) << 32
-                if not -(1 << 63) < iv < (1 << 63):
-                    _raise_err(4)
-        if typ.np_dtype.kind == "i" and iv == np.iinfo(typ.np_dtype).min:
-            return self._lit(HScalar(None, typ))
-        if typ.kind == Kind.STR:
-            return self._lit(HScalar(str(fr.pts[0].sdict.values[iv]), typ))
-        return self._lit(HScalar(iv, typ))
+        with PROFILER.span("lower.subquery", "subquery_ns"):
+            _tag, rel, scols = e.select
+            try:
+                fr = CompiledFragment(self.catalog, rel, [scols[0].name]) \
+                    .run(stat="subquery_runs")
+            except Unsupported:
+                return self._subquery_executor(rel, scols[0].name)
+            typ = fr.pts[0].typ
+            if fr.count == 0:
+                return self._lit(HScalar(None, typ))
+            v = fr.arrays[0][0]
+            if typ.np_dtype.kind == "f":
+                fv = float(v)
+                return self._lit(HScalar(None if np.isnan(fv) else fv,
+                                         typ))
+            iv = int(v)
+            if 0 in fr.wide:
+                # a bare wide sum: nil rides in the low limb; beyond int64
+                # is the overflow a narrowing expression would raise
+                if iv != _I64_MIN_PY:
+                    iv += int(fr.arrays[fr.wide[0]][0]) << 32
+                    if not -(1 << 63) < iv < (1 << 63):
+                        _raise_err(4)
+            if typ.np_dtype.kind == "i" and \
+                    iv == np.iinfo(typ.np_dtype).min:
+                return self._lit(HScalar(None, typ))
+            if typ.kind == Kind.STR:
+                return self._lit(HScalar(str(fr.pts[0].sdict.values[iv]),
+                                         typ))
+            return self._lit(HScalar(iv, typ))
 
     # -- arithmetic (mirrors executor._eval_binop + ops/calc.py) -------------
     def _tofloat(self, ir, pt: PT):
@@ -1103,14 +1115,15 @@ class Lowering:
             raise Unsupported("string cast without dictionary")
         from .executor import _parse_str_cast
         from ..storage.columns import to_physical_np
-        vals = []
-        for sv in pt.sdict.values:
-            try:
-                vals.append(_parse_str_cast(str(sv), to))
-            except Exception:
-                raise Unsupported("unparseable string cast")
-        phys = to_physical_np(vals, to)
-        lut = self._add_lut(np.asarray(phys, dtype=to.np_dtype))
+        with self._dict_span(pt.sdict.values):
+            vals = []
+            for sv in pt.sdict.values:
+                try:
+                    vals.append(_parse_str_cast(str(sv), to))
+                except Exception:
+                    raise Unsupported("unparseable string cast")
+            phys = to_physical_np(vals, to)
+            lut = self._add_lut(np.asarray(phys, dtype=to.np_dtype))
         return ("lutmap", lut, ir, to.np_dtype.str), PT(to, nonil=pt.nonil)
 
     def _val_to_str_lut(self, ir, pt: PT, to: SQLType):
@@ -1137,26 +1150,29 @@ class Lowering:
     def _unify_str_vals(self, lowered):
         """Merge the dictionaries of string CASE branches into one
         order-preserving dict; remap each branch by lut."""
-        dicts = []
-        for ir, pt in lowered:
-            if pt.typ is not None and not pt.is_str:
-                # mixed-type branches need host-side value→string casts:
-                # executor path (convert_any_str)
-                raise Unsupported("mixed-type string CASE/COALESCE")
-            if pt.sdict is not None and len(pt.sdict.values):
-                dicts.append(np.asarray(pt.sdict.values, dtype=str))
-        merged = np.unique(np.concatenate(dicts)) if dicts \
-            else np.empty(0, dtype=str)
-        sd = StrDict(merged)
-        out = []
-        for ir, pt in lowered:
-            if pt.sdict is None or not len(pt.sdict.values):
-                out.append((ir, dataclasses.replace(pt, sdict=sd)))
-                continue
-            remap = np.searchsorted(merged, pt.sdict.values).astype(np.int32)
-            lut = self._add_lut(remap)
-            out.append((("lutmap", lut, ir, "<i4"),
-                        dataclasses.replace(pt, sdict=sd)))
+        with self._dict_span(*[pt.sdict.values for _ir, pt in lowered
+                               if pt.sdict is not None]):
+            dicts = []
+            for ir, pt in lowered:
+                if pt.typ is not None and not pt.is_str:
+                    # mixed-type branches need host-side value→string
+                    # casts: executor path (convert_any_str)
+                    raise Unsupported("mixed-type string CASE/COALESCE")
+                if pt.sdict is not None and len(pt.sdict.values):
+                    dicts.append(np.asarray(pt.sdict.values, dtype=str))
+            merged = np.unique(np.concatenate(dicts)) if dicts \
+                else np.empty(0, dtype=str)
+            sd = StrDict(merged)
+            out = []
+            for ir, pt in lowered:
+                if pt.sdict is None or not len(pt.sdict.values):
+                    out.append((ir, dataclasses.replace(pt, sdict=sd)))
+                    continue
+                remap = np.searchsorted(merged,
+                                        pt.sdict.values).astype(np.int32)
+                lut = self._add_lut(remap)
+                out.append((("lutmap", lut, ir, "<i4"),
+                            dataclasses.replace(pt, sdict=sd)))
         return out, sd
 
     def _case(self, e: Case, penv):
@@ -1338,11 +1354,13 @@ class Lowering:
                 return s * int(args[0])
             raise Unsupported(name)
 
-        mapped = np.array([f(str(v)) for v in pt.sdict.values], dtype=object)
-        uniq, codes = (np.unique(mapped.astype(str), return_inverse=True)
-                       if len(mapped) else (np.empty(0, dtype=str),
-                                            np.empty(0, dtype=np.int64)))
-        lut = self._add_lut(codes.astype(np.int32))
+        with self._dict_span(pt.sdict.values):
+            mapped = np.array([f(str(v)) for v in pt.sdict.values],
+                              dtype=object)
+            uniq, codes = (np.unique(mapped.astype(str), return_inverse=True)
+                           if len(mapped) else (np.empty(0, dtype=str),
+                                                np.empty(0, dtype=np.int64)))
+            lut = self._add_lut(codes.astype(np.int32))
         out_pt = PT(varchar(), nonil=pt.nonil, sdict=StrDict(uniq))
         return ("lutmap", lut, ir, "<i4"), out_pt
 
@@ -1416,14 +1434,15 @@ class Lowering:
         if a_pt.sdict is None or b_pt.sdict is None:
             raise Unsupported("string compare without dictionary")
         # translate right codes into the left code space (-2 = absent)
-        idx = np.searchsorted(a_pt.sdict.values, b_pt.sdict.values)
-        idx = np.clip(idx, 0, max(len(a_pt.sdict) - 1, 0))
-        if len(a_pt.sdict):
-            found = a_pt.sdict.values[idx] == b_pt.sdict.values
-        else:
-            found = np.zeros(len(b_pt.sdict.values), bool)
-        remap = np.where(found, idx, -2).astype(np.int32)
-        lut = self._add_lut(remap)
+        with self._dict_span(b_pt.sdict.values):
+            idx = np.searchsorted(a_pt.sdict.values, b_pt.sdict.values)
+            idx = np.clip(idx, 0, max(len(a_pt.sdict) - 1, 0))
+            if len(a_pt.sdict):
+                found = a_pt.sdict.values[idx] == b_pt.sdict.values
+            else:
+                found = np.zeros(len(b_pt.sdict.values), bool)
+            remap = np.where(found, idx, -2).astype(np.int32)
+            lut = self._add_lut(remap)
         b2 = ("lutmap_keepnil", lut, b_ir)
         return a_ir, a_pt, b2, dataclasses.replace(b_pt, sdict=a_pt.sdict)
 
@@ -1588,21 +1607,25 @@ class Lowering:
         caseless = getattr(e, "caseless", False)
         flags = re.DOTALL | (re.IGNORECASE if caseless else 0)
         lut = None
-        if not getattr(e, "regex", False):
-            # vectorized %-pattern matching over the dict: one numpy pass
-            # per literal segment; survives distincts ~ rows (the
-            # high-cardinality case where a python regex loop collapses)
-            lut = _like_mask_vectorized(pt.sdict.values, e.pattern,
-                                        e.escape, caseless)
-        if lut is None and getattr(e, "regex", False):
-            rx = re.compile(e.pattern, flags)
-            lut = pt.sdict.match_mask(lambda v: rx.search(v) is not None)
-        elif lut is None:
-            rx = re.compile(like_regex(e.pattern, e.escape).pattern, flags)
-            lut = pt.sdict.match_mask(lambda v: rx.match(v) is not None)
-        if e.negated:
-            lut = ~lut
-        li = self._add_lut(lut)
+        with self._dict_span(pt.sdict.values):
+            if not getattr(e, "regex", False):
+                # vectorized %-pattern matching over the dict: one numpy
+                # pass per literal segment; survives distincts ~ rows (the
+                # high-cardinality case where a python regex loop
+                # collapses)
+                lut = _like_mask_vectorized(pt.sdict.values, e.pattern,
+                                            e.escape, caseless)
+            if lut is None and getattr(e, "regex", False):
+                rx = re.compile(e.pattern, flags)
+                lut = pt.sdict.match_mask(
+                    lambda v: rx.search(v) is not None)
+            elif lut is None:
+                rx = re.compile(like_regex(e.pattern, e.escape).pattern,
+                                flags)
+                lut = pt.sdict.match_mask(lambda v: rx.match(v) is not None)
+            if e.negated:
+                lut = ~lut
+            li = self._add_lut(lut)
         return ("strpred", li, ir)
 
 
@@ -1751,6 +1774,10 @@ class _Interp:
         # eager whole-column evaluation the per-element error conditions
         # are masked by the branch-selection mask instead)
         self._vmask = None
+        # one profiler span a relational node (``r_<node>#<ordinal>``),
+        # while the profiler records and on one device only
+        self._spans = coll is None and PROFILER.recording
+        self._nodes = 0
 
     def flag_rows(self, rows, code: int):
         """Record error ``code`` if any of ``rows`` is set, honoring the
@@ -1800,7 +1827,15 @@ class _Interp:
 
     # -- relational nodes --------------------------------------------------
     def rel(self, ir):
+        if self._spans:
+            return self._rel_spanned(ir)
         return self._dispatch("r_", ir[0])(ir)
+
+    def _rel_spanned(self, ir):
+        name = f"r_{ir[0]}#{self._nodes}"
+        self._nodes += 1
+        with PROFILER.span(name):
+            return self._dispatch("r_", ir[0])(ir)
 
     def live_of(self, cap, count, mask):
         live = torch.arange(cap, device=self.device) < count
@@ -3154,7 +3189,14 @@ def _fetch_scalars(err, count, tots: Dict[int, torch.Tensor]):
     device->host copy (the reference's jax.device_get of the same)."""
     vals = torch.stack([x.to(torch.int64).reshape(())
                         for x in (err, count, *tots.values())]).tolist()
+    stats_inc("host_reads")
     return vals[0], vals[1], dict(zip(tots, vals[2:]))
+
+
+def _to_host(arrays) -> List[np.ndarray]:
+    """Result arrays copied to the host, one read each."""
+    stats_inc("host_reads", len(arrays))
+    return [a.cpu().numpy() for a in arrays]
 
 
 def _replicated_outputs(outs):
@@ -3164,7 +3206,7 @@ def _replicated_outputs(outs):
     fetched = []
     for err, tots, count, arrays in outs:
         code, n, tots_v = _fetch_scalars(err, count, tots)
-        fetched.append((code, n, tots_v, [a.cpu().numpy() for a in arrays]))
+        fetched.append((code, n, tots_v, _to_host(arrays)))
     first = fetched[0]
     for d, (code, n, tots_v, arrs) in enumerate(fetched[1:], 1):
         what = None
@@ -3290,7 +3332,18 @@ STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
          # SPMD plans that exchanged rows through the ragged all-to-all
          # (hash-partitioned joins / group-bys / distincts) instead of
          # broadcast-gathering - tests assert the shuffle path executed
-         "shuffle_joins": 0, "shuffle_groupbys": 0, "shuffle_distincts": 0}
+         "shuffle_joins": 0, "shuffle_groupbys": 0, "shuffle_distincts": 0,
+         # host time by layer, in ns: the self time of the profiler's spans
+         # (obs/profiler.py), charged whether or not it records; a
+         # query's add up to its root spans' durations (``sql`` or
+         # ``engine.query``, and ``result.decode``)
+         "queries": 0, "sql_ns": 0, "parse_ns": 0, "bind_ns": 0,
+         "lower_ns": 0, "dict_ns": 0, "subquery_ns": 0, "dispatch_ns": 0,
+         "wait_ns": 0, "fetch_ns": 0, "decode_ns": 0, "executor_ns": 0,
+         # string dictionary values mapped on the host while lowering, and
+         # device-to-host reads of the fragment path (scalar fetches,
+         # result arrays, executor-run subquery values)
+         "dict_values": 0, "host_reads": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:
@@ -3305,19 +3358,21 @@ class CompiledFragment:
     table identity."""
 
     def __init__(self, catalog, rel: L.Rel, out_names: List[str]):
-        t0 = time.perf_counter()
-        self.catalog = catalog
-        self.rel = rel
-        self.out_names = list(out_names)
-        self._lower({})
-        self.plan_key = self.rel_ir       # naive IR identifies the plan
-        with _LOCK:
-            memo = dict(_JOIN_MEMO.get(self.plan_key, ()))
-        if not memo:
-            memo = _memo_disk_get(self.plan_key) or {}
-        if memo:
-            self._lower(memo)
-        self.lower_ms = (time.perf_counter() - t0) * 1e3
+        with PROFILER.span("fragment.lower", "lower_ns") as sp:
+            self.catalog = catalog
+            self.rel = rel
+            self.out_names = list(out_names)
+            self._lower({})
+            self.plan_key = self.rel_ir       # naive IR identifies the plan
+            with _LOCK:
+                memo = dict(_JOIN_MEMO.get(self.plan_key, ()))
+            if not memo:
+                memo = _memo_disk_get(self.plan_key) or {}
+            if memo:
+                self._lower(memo)
+        #: the span of this lowering: TRACE's ``fragment.lower`` event
+        self.lower_span = sp
+        self.lower_ms = (sp.end_ns - sp.start_ns) / 1e6
 
     def _lower(self, expand: Dict[int, int]) -> None:
         low = Lowering(self.catalog, expand=expand)
@@ -3356,6 +3411,11 @@ class CompiledFragment:
         # the IR; here, when the IR is new since the last run
         self.fresh_ir = True
 
+    def _relower(self, expand: Dict[int, int]) -> None:
+        """Lower again with other capacities (a retry or a shrink)."""
+        with PROFILER.span("fragment.lower", "lower_ns"):
+            self._lower(expand)
+
     def _memoize(self) -> None:
         with _LOCK:
             _JOIN_MEMO[self.plan_key] = dict(self.expand)
@@ -3393,7 +3453,7 @@ class CompiledFragment:
         chosen.add(best)
         return frozenset(i for t in chosen for i in idxs[t])
 
-    def _run_spmd(self, mesh, events: Optional[list], require_min: bool,
+    def _run_spmd(self, mesh, sp, require_min: bool,
                   stat: str) -> FragmentResult:
         """Execute over a row mesh: SQL in, SPMD out.  The same retry
         discipline as the single-device path (non-unique build discovery,
@@ -3421,7 +3481,6 @@ class CompiledFragment:
         set_algorithm("fragment:spmd")
         stats_inc(stat)
         stats_inc("spmd_runs")
-        t0 = time.perf_counter()
         rpcs = 0
         lane_caps = getattr(self, "_lane_caps", None)
         if lane_caps is None:
@@ -3438,20 +3497,24 @@ class CompiledFragment:
             repcheck = bool(config.get("assert_props"))
             fn = _spmd_callable((sp_ir, self.out_keys, self.cap), mesh,
                                 flags, repcheck=repcheck)
-            out = fn(self.inputs)
+            with PROFILER.span("run.dispatch", "dispatch_ns"):
+                out = fn(self.inputs)
             if repcheck:
                 # runtime replication assert (GDKdebug/assert_props):
                 # every shard must have produced identical outputs
-                code, n, tots_v, arrs = _replicated_outputs(out)
+                with PROFILER.span("run.wait", "wait_ns"):
+                    code, n, tots_v, arrs = _replicated_outputs(out)
             else:
                 err, tots, count, arrays = out
-                code, n, tots_v = _fetch_scalars(err, count, tots)
-                arrs = [a.cpu().numpy() for a in arrays]
+                with PROFILER.span("run.wait", "wait_ns"):
+                    code, n, tots_v = _fetch_scalars(err, count, tots)
+                with PROFILER.span("run.fetch", "fetch_ns"):
+                    arrs = _to_host(arrays)
             rpcs += 1
             if code >= _ERR_DUP_BASE:
                 expand = dict(self.expand)
                 expand[code - _ERR_DUP_BASE] = None
-                self._lower(expand)
+                self._relower(expand)
                 self.expand = {**expand, **self.expand_used}
                 self._memoize()
                 stats_inc("uniq_retries")
@@ -3487,7 +3550,7 @@ class CompiledFragment:
                 expand = dict(self.expand)
                 for o, t in over.items():
                     expand[o] = capacity_for(max(t, 1))
-                self._lower(expand)
+                self._relower(expand)
                 self._memoize()
                 stats_inc("cap_retries")
                 continue
@@ -3495,12 +3558,9 @@ class CompiledFragment:
             for key, v in rwr.counts.items():
                 if v:
                     stats_inc(key, v)
-            if events is not None:
-                events.append({
-                    "op": "fragment.run", "algorithm": "fragment:spmd",
-                    "rows": n, "rpcs": rpcs, "devices": nsh,
-                    "shuffles": dict(rwr.counts),
-                    "usec": int((time.perf_counter() - t0) * 1e6)})
+            sp.attrs = {"algorithm": "fragment:spmd", "rows": n,
+                        "rpcs": rpcs, "devices": nsh,
+                        "shuffles": dict(rwr.counts)}
             return FragmentResult(n, arrs, self.pts, self.wide)
         raise Unsupported("expanding-join retry limit exceeded")
 
@@ -3516,36 +3576,49 @@ class CompiledFragment:
         one shard) the plan runs SPMD (see _run_spmd); a plan the mesh
         path rejects runs on one device.  ``spmd_require_min`` (session
         auto-mesh) keeps plans whose largest scan is below
-        spmd_min_shard_rows on one device."""
-        if mesh is not None:
-            try:
-                return self._run_spmd(mesh, events, spmd_require_min, stat)
-            except Unsupported:
-                pass    # e.g. tiny/unshardable plan: run single-device
+        spmd_min_shard_rows on one device.  The run is the profiler's
+        ``fragment.run`` span; ``events``, when given, receives its TRACE
+        event."""
+        with PROFILER.span("fragment.run", "dispatch_ns") as sp:
+            result = None
+            if mesh is not None:
+                try:
+                    result = self._run_spmd(mesh, sp, spmd_require_min, stat)
+                except Unsupported:
+                    pass    # e.g. tiny/unshardable plan: run single-device
+            if result is None:
+                result = self._run_one(sp, stat)
+        if events is not None:
+            events.append(sp.view())
+        return result
+
+    def _run_one(self, sp, stat: str) -> FragmentResult:
+        """``run`` on one device."""
         from ..obs import set_algorithm
         set_algorithm("fragment:jit")
         stats_inc(stat)
-        t0 = time.perf_counter()
         rpcs = 0
         lowered = False
         for _attempt in range(8):
             lowered |= self.fresh_ir
             self.fresh_ir = False
             single = self.cap <= _SINGLE_PHASE_CAP
-            if single:
-                err, tots, count, arrays = _run_single(
-                    (self.rel_ir, self.out_keys, self.cap), self.inputs)
-            else:
-                err, tots, count, live, arrays = _run_raw(
-                    (self.rel_ir, self.out_keys), self.inputs)
-            code, n, tots_v = _fetch_scalars(err, count, tots)
+            with PROFILER.span("run.dispatch", "dispatch_ns"):
+                if single:
+                    err, tots, count, arrays = _run_single(
+                        (self.rel_ir, self.out_keys, self.cap), self.inputs)
+                else:
+                    err, tots, count, live, arrays = _run_raw(
+                        (self.rel_ir, self.out_keys), self.inputs)
+            with PROFILER.span("run.wait", "wait_ns"):
+                code, n, tots_v = _fetch_scalars(err, count, tots)
             rpcs += 1
             if code >= _ERR_DUP_BASE:
                 # join <ordinal> build side is non-unique: re-lower it as
                 # an expanding join and retry
                 expand = dict(self.expand)
                 expand[code - _ERR_DUP_BASE] = None
-                self._lower(expand)
+                self._relower(expand)
                 self.expand = {**expand, **self.expand_used}
                 self._memoize()
                 stats_inc("uniq_retries")
@@ -3556,19 +3629,20 @@ class CompiledFragment:
                 expand = dict(self.expand)
                 for o, t in over.items():
                     expand[o] = capacity_for(max(t, 1))
-                self._lower(expand)
+                self._relower(expand)
                 self._memoize()
                 stats_inc("cap_retries")
                 continue
             _raise_err(code)
-            if not single:
-                out_cap = min(self.cap, capacity_for(max(n, 1)))
-                arrays = _finish_slice(arrays, out_cap=out_cap) \
-                    if live is None else \
-                    _finish_mask(live, arrays, out_cap=out_cap)
-                rpcs += 1
-            result = FragmentResult(n, [a.cpu().numpy() for a in arrays],
-                                    self.pts, self.wide)
+            with PROFILER.span("run.fetch", "fetch_ns"):
+                if not single:
+                    out_cap = min(self.cap, capacity_for(max(n, 1)))
+                    arrays = _finish_slice(arrays, out_cap=out_cap) \
+                        if live is None else \
+                        _finish_mask(live, arrays, out_cap=out_cap)
+                    rpcs += 1
+                result = FragmentResult(n, _to_host(arrays), self.pts,
+                                        self.wide)
             # capacity SHRINK: buckets start at a conservative default;
             # once the true total is measured, re-lower to its bucket so
             # later runs pay for actual rows, not the guess
@@ -3579,18 +3653,15 @@ class CompiledFragment:
                 if used > 2 * tight:
                     shrink[o] = tight
             if shrink:
-                self._lower({**self.expand, **shrink})
+                self._relower({**self.expand, **shrink})
                 self.expand = {**self.expand, **shrink,
                                **self.expand_used}
                 self._memoize()
-            if events is not None:
-                events.append({
-                    "op": "fragment.run", "algorithm": "fragment:jit",
-                    "device": str(self.inputs[0].device),
-                    "rows": n, "rpcs": rpcs,
-                    "compile": "miss" if lowered else "hit",
-                    "expanding_joins": len(self.expand_used),
-                    "usec": int((time.perf_counter() - t0) * 1e6)})
+            sp.attrs = {"algorithm": "fragment:jit",
+                        "device": str(self.inputs[0].device),
+                        "rows": n, "rpcs": rpcs,
+                        "compile": "miss" if lowered else "hit",
+                        "expanding_joins": len(self.expand_used)}
             return result
         raise Unsupported("expanding-join retry limit exceeded")
 
@@ -3604,5 +3675,6 @@ def compile_fragment(catalog, rel: L.Rel, out_names: List[str]):
 def run_fragment(catalog, rel: L.Rel, out_names: List[str],
                  events: Optional[list] = None) -> FragmentResult:
     """One-shot lower + execute (see CompiledFragment; the engine caches
-    the compiled object instead, engine._PLAN_CACHE)."""
+    the compiled object instead, engine._PLAN_CACHE); ``events`` receives
+    the run's TRACE event."""
     return CompiledFragment(catalog, rel, out_names).run(events=events)

@@ -22,6 +22,7 @@ import numpy as np
 
 from .dtypes import Kind, SQLType
 from .engine import Engine, Result, check_mesh
+from .obs.profiler import PROFILER
 from .sql import ast as A
 from .sql.binder import BindError, bind_select
 from .sql.parser import parse
@@ -272,18 +273,23 @@ class Session:
     # -- entry ----------------------------------------------------------------
     def sql(self, text: str,
             copy_data: Optional[str] = None) -> Union[Result, int, None]:
+        """The profiler's ``sql`` span, whose query id is the statement's
+        ``sys.queue`` tag; it records under TRACE."""
         from .sql.syscat import CURRENT_QUERY, QUEUE
-        tag = QUEUE.start(text, self.timeout)
-        CURRENT_QUERY.tag = tag
-        try:
-            out = self._sql(text, copy_data=copy_data)
-        except Exception:
-            QUEUE.finish(tag, "aborted")
-            raise
-        finally:
-            CURRENT_QUERY.tag = None
-        QUEUE.finish(tag)
-        return out
+        trace = text.lstrip()[:6].lower() == "trace "
+        with PROFILER.record(trace), \
+                PROFILER.span("sql", "sql_ns", root=True) as sp:
+            tag = sp.query = QUEUE.start(text, self.timeout)
+            CURRENT_QUERY.tag = tag
+            try:
+                out = self._sql(text, copy_data=copy_data)
+            except Exception:
+                QUEUE.finish(tag, "aborted")
+                raise
+            finally:
+                CURRENT_QUERY.tag = None
+            QUEUE.finish(tag)
+            return out
 
     def _sql(self, text: str,
              copy_data: Optional[str] = None) -> Union[Result, int, None]:
@@ -330,7 +336,8 @@ class Session:
             return None
         if head.startswith(("exec ", "execute ", "deallocate")):
             return self._exec_prepared(text.lstrip())
-        stmt = parse(text)
+        with PROFILER.span("sql.parse", "parse_ns"):
+            stmt = parse(text)
         if isinstance(stmt, A.SelectStmt):
             interp = self._try_interp_call(stmt)
             if interp is not None:
@@ -803,20 +810,25 @@ class Session:
         return self._cached_query(text)
 
     def _cached_query(self, text: str) -> Result:
-        key = " ".join(text.split())
-        eng = self._engine()
+        with PROFILER.span("sql.bind", "bind_ns"):
+            eng = self._engine()
+            rel, out_cols = self._bound(eng, text)
+        return eng.execute_plan(rel, out_cols)
+
+    def _bound(self, eng: Engine, text: str):
+        """The bound plan of ``text``, from the session's plan cache."""
         if self.txn is not None:
             # inside a transaction the visible schema may differ from the
             # committed one (transactional CREATE/DROP) — bypass the cache
             # (the reference invalidates qc entries on trans schema changes)
-            rel, out_cols = bind_select(eng.catalog, text)
-            return eng.execute_plan(rel, out_cols)
+            return bind_select(eng.catalog, text)
+        key = " ".join(text.split())
         hit = self._plan_cache.get(key)
         if hit is not None and hit[0] == self.db.schema_epoch:
-            return eng.execute_plan(hit[1], hit[2])
+            return hit[1], hit[2]
         rel, out_cols = bind_select(eng.catalog, text)
         self._plan_cache[key] = (self.db.schema_epoch, rel, out_cols)
-        return eng.execute_plan(rel, out_cols)
+        return rel, out_cols
 
     # -- prepared statements (sql_qc.c prepared-query entries) ----------------
     def prepare(self, text: str) -> "Prepared":

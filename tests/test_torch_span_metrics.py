@@ -1,0 +1,99 @@
+"""The benchmark's readers of the program's counters (``qbench/metrics/``,
+``source: program_counter``) over a window of the tiny ``tpch-sf1.power``
+cell run through the Session on the CPU, with a stub device trace: each
+reads its counters' window delta over the window's queries, and nothing
+without a device trace or without its counter; and the counters of host
+time add up to the window's latencies."""
+
+import os
+
+os.environ.setdefault("MTPU_TORCH_EXPAND_MEMO", "0")
+
+import pytest  # noqa: E402
+
+from qbench import harness, tracing  # noqa: E402
+from qbench.tests import tiny  # noqa: E402
+
+SEED = 1234567891011
+#: reader -> the counters it sums and the scale of the sum
+READERS = {
+    "front_ms.session": (("sql_ns", "parse_ns", "bind_ns"), 1e-6),
+    "lower_self_ms.session": (("lower_ns",), 1e-6),
+    "dict_map_ms.session": (("dict_ns",), 1e-6),
+    "subquery_ms.session": (("subquery_ns",), 1e-6),
+    "dispatch_ms": (("dispatch_ns",), 1e-6),
+    "dispatch_ms.session": (("dispatch_ns",), 1e-6),
+    "wait_ms": (("wait_ns",), 1e-6),
+    "wait_ms.session": (("wait_ns",), 1e-6),
+    "host_reads_per_query": (("host_reads",), 1),
+    "host_reads_per_query.session": (("host_reads",), 1),
+    "decode_span_ms": (("decode_ns",), 1e-6),
+    "decode_span_ms.session": (("decode_ns",), 1e-6),
+}
+NS = ("sql_ns", "parse_ns", "bind_ns", "lower_ns", "dict_ns",
+      "subquery_ns", "dispatch_ns", "wait_ns", "fetch_ns", "decode_ns",
+      "executor_ns")
+
+
+@pytest.fixture(scope="module")
+def window():
+    """The cell's queries once to warm, then once as the window: its
+    answers and its counters' deltas."""
+    cell = tiny.cell("tpch-sf1.power")
+    cfg = cell.cfg
+    data = harness.load_module("gen", cfg["generator"]).generate(
+        cfg, SEED, "cpu")
+    entry = harness.load_module("entries", cfg["entry"]).open_entry(
+        cfg, data, "cpu")
+    try:
+        for q in cell.qids:
+            harness._ask(entry, q, cell.texts[q], None, False)
+        before = harness._counters()
+        answers = [harness._ask(entry, q, cell.texts[q], None, False)
+                   for q in cell.qids]
+        after = harness._counters()
+    finally:
+        entry.close()
+    assert all(a.error is None for a in answers), \
+        [a.error for a in answers if a.error]
+    counters = {k: after[k] - before.get(k, 0) for k in after}
+    return cell, answers, counters
+
+
+def _run(window, trace=True, drop=()):
+    cell, answers, counters = window
+    stub = tracing.DeviceTrace(1.0, 0.5, 1, [], []) if trace else None
+    counters = {k: v for k, v in counters.items()
+                if k.split(".", 1)[1] not in drop}
+    return harness.Run(cell, answers, 1.0, stub, counters, {}, "cpu")
+
+
+def test_every_reader_is_in_the_benchmark():
+    per_layer = {m["name"]: m for m in tiny.bench()["per_layer"]}
+    for name in READERS:
+        assert per_layer[name]["source"] == "program_counter"
+    assert {n for n, m in per_layer.items()
+            if m["source"] == "program_counter"} == set(READERS)
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_reads_its_counters_over_the_queries(window, name):
+    keys, scale = READERS[name]
+    _cell, answers, counters = window
+    read = harness.load_module("metrics", name).read
+    want = sum(counters[f"fragment.{k}"] for k in keys) * scale / \
+        len(answers)
+    assert read(_run(window)) == pytest.approx(want, rel=1e-12)
+    assert read(_run(window, trace=False)) is None
+    assert read(_run(window, drop=keys[:1])) is None
+
+
+def test_counters_add_up_to_the_latencies(window):
+    _cell, answers, counters = window
+    assert counters["fragment.queries"] == len(answers)
+    total_s = sum(counters[f"fragment.{k}"] for k in NS) / 1e9
+    lat_s = sum(a.latency_s for a in answers)
+    assert abs(total_s - lat_s) <= 0.05 * lat_s, (total_s, lat_s)
+    for k in ("lower_ns", "dict_ns", "subquery_ns", "dispatch_ns",
+              "wait_ns", "fetch_ns", "decode_ns", "host_reads"):
+        assert counters[f"fragment.{k}"] > 0, k
