@@ -25,6 +25,13 @@ Phases, one or more output lines each, and a line with each phase's time:
 4. load    - TPC-H SF1 generated and loaded onto the card (``load_tpch``);
              the numpy oracle (monetdb_tpu_torch/bench/tpch_oracle.py)
              computes every query's expected rows from the same data.
+             Then (kernel dict) like_match and substr_keys over the loaded
+             o_comment (Q13's NOT LIKE) and c_phone (Q22's substring)
+             dictionaries: equal to the host's maps; CUDA-event times of
+             each kernel, of its heap's upload and of the whole device map,
+             beside the host map it replaces (host clock); and both paths'
+             wall over prefixes of each dictionary, the routing's
+             crossover (ops/dictmap.py DEVICE_MIN_VALUES).
 5. fused   - the kernel path: q1_grouped_sums over the resident SF1
              lineitem (group code from the two flag columns, int32 copies
              of the measures, Q1's cutoff) must give the oracle's Q1 sums
@@ -252,12 +259,14 @@ from monetdb_tpu_torch.bench import ssbm, ssbm_oracle, tpcds, tpch_oracle
 from monetdb_tpu_torch.bench.tpch_gen import SCHEMA, gen_tpch
 from monetdb_tpu_torch.bench.tpch_load import load_tpch, load_tpch_db
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES
-from monetdb_tpu_torch.column import Column, capacity_for
+from monetdb_tpu_torch.column import Column, StrDict, capacity_for
 from monetdb_tpu_torch.dtypes import BOOL, I32, I64
 from monetdb_tpu_torch.engine import Engine, plan_cache_clear, plan_cache_stats
 from monetdb_tpu_torch.exec import fragment
 from monetdb_tpu_torch.farm import Farm
 from monetdb_tpu_torch.ops import cuda_kernels as CK
+from monetdb_tpu_torch.ops import dictmap as DM
+from monetdb_tpu_torch.ops import strfuncs as STRF
 from monetdb_tpu_torch.ops import external as X
 from monetdb_tpu_torch.ops import window as W
 from monetdb_tpu_torch.ops.geom import GEOD_RADIUS
@@ -563,6 +572,130 @@ def phase_load(dev):
     _log(f"load: numpy oracle for {len(want)} queries "
          f"{time.perf_counter() - t0:.2f} s ({', '.join(took)})")
     return cat, resident, want, data
+
+
+#: the dictionary maps of the power cell's Q13 and Q22
+DICT_LIKE = ("orders", "o_comment", "%special%requests%")
+DICT_SUBSTR = ("customer", "c_phone", "substring", [1, 2])
+#: dictionary sizes of the host / device crossover (ops/dictmap.py)
+DICT_SIZES = (25, 64, 150, 256, 512, 1024, 2048, 4096, 16384, 65536)
+
+
+def _host_wall(fn, reps: int = 5) -> float:
+    """Median milliseconds of host wall time of fn() and a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _dict_paths(sd, dev):
+    """(host map, device map) of the two maps over ``sd``, each giving
+    its table on ``dev``: the host path as the lowering runs it (numpy /
+    Python, then the table's upload) and ops/dictmap.py's."""
+    pattern = DICT_LIKE[2]
+    name, args = DICT_SUBSTR[2:]
+
+    def host_like():
+        return torch.as_tensor(STRF.like_lut(sd, pattern, True), device=dev)
+
+    def host_substr():
+        f = fragment._str_fn(name, args)
+        vals = np.array([f(str(v)) for v in sd.values], dtype=object)
+        _u, codes = np.unique(vals.astype(str), return_inverse=True)
+        return torch.as_tensor(codes.astype(np.int32), device=dev)
+
+    return ((host_like, lambda: DM.like_mask(sd, pattern, None, False,
+                                              True, dev)),
+            (host_substr, lambda: DM.substr_remap(sd, name, args, dev)))
+
+
+def phase_kernel_dict(dev, cat) -> list:
+    """like_match and substr_keys on the card over the loaded catalog's
+    o_comment (Q13's NOT LIKE) and c_phone (Q22's substring) dictionaries:
+    the device map equal to the host's, then CUDA-event times of the
+    kernel alone (heap resident), of the heap's upload from pinned host
+    memory and of the whole device map (upload, kernel, remap), beside the
+    host path it replaces (host clock, table upload and synchronise
+    included), and the bound of each.  Then the crossover: both paths'
+    wall over prefixes of each dictionary (DICT_SIZES)."""
+    entries = []
+    for (table, column, *_), kernel in ((DICT_LIKE, "like_match"),
+                                         (DICT_SUBSTR, "substr_keys")):
+        sd = cat.get(table).col(column).sdict
+        t0 = time.perf_counter()
+        heap = sd.heap()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        n, nbytes = len(sd), heap.data.numel()
+        data = heap.data.to(dev)
+        offs = heap.offsets.to(dev)
+        (host_like, dev_like), (host_sub, dev_sub) = _dict_paths(sd, dev)
+        if kernel == "like_match":
+            prog = STRF.like_program(DICT_LIKE[2])
+            got = dev_like()
+            want = host_like()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"like_match != host over {column}")
+            run = lambda: CK.like_match(data, offs, prog, negate=True)
+            whole, host = dev_like, host_like
+            out_bytes = n
+        else:
+            codes, vals = dev_sub()
+            want = host_sub()
+            torch.cuda.synchronize()
+            f = fragment._str_fn(*DICT_SUBSTR[2:])
+            want_vals = np.unique(np.array([f(str(v)) for v in sd.values],
+                                           dtype=object).astype(str))
+            if not (torch.equal(codes, want) and
+                    vals.tolist() == want_vals.tolist()):
+                raise AssertionError(f"substr_keys != host over {column}")
+            run = lambda: CK.substr_keys(data, offs, start=0, count=2)
+            whole, host = dev_sub, host_sub
+            out_bytes = 8 * n
+        kernel_ms = time_cuda(run)
+        upload_ms = time_cuda(lambda: (heap.data.to(dev, non_blocking=True),
+                                       heap.offsets.to(dev,
+                                                       non_blocking=True)))
+        whole_ms = _host_wall(whole)
+        host_ms = _host_wall(host, reps=3)
+        in_bytes = nbytes + 4 * (n + 1)
+        entry = {"name": kernel, "route": "cuda",
+                 "source": f"monetdb_tpu_torch/csrc/{kernel}.cu",
+                 "replaces": "none (the lowering's host map)",
+                 "dictionary": f"{table}.{column}", "values": n,
+                 "heap_bytes": nbytes, "heap_build_ms": build_ms,
+                 "ms": kernel_ms, "upload_ms": upload_ms,
+                 "device_map_ms": whole_ms, "host_ms": host_ms,
+                 "upload_gbs": in_bytes / (upload_ms * 1e-3) / 1e9,
+                 **bound(in_bytes + out_bytes, 0)}
+        _log(f"kernel: {kernel} over {table}.{column} ({n} values, "
+             f"{nbytes} heap bytes, heap built in {build_ms:.1f} ms) equal "
+             f"to the host map; kernel {kernel_ms:.4f} ms (bound "
+             f"{entry['bound_ms']:.4f} ms, {entry['bound_by']}), upload "
+             f"{upload_ms:.4f} ms ({entry['upload_gbs']:.1f} GB/s), device "
+             f"map {whole_ms:.3f} ms wall, host map {host_ms:.3f} ms wall")
+        entries.append(entry)
+        del data, offs
+        # the device path at every size, the routing's crossover lifted
+        routed, DM.DEVICE_MIN_VALUES = DM.DEVICE_MIN_VALUES, 1
+        try:
+            for size in DICT_SIZES:
+                if size > n:
+                    continue
+                part = StrDict(sd.values[:size])
+                part.heap()
+                paths = _dict_paths(part, dev)[kernel != "like_match"]
+                _log(f"kernel: {kernel} crossover at {size} values: host "
+                     f"{_host_wall(paths[0], reps=9):.4f} ms, device "
+                     f"{_host_wall(paths[1], reps=9):.4f} ms wall")
+        finally:
+            DM.DEVICE_MIN_VALUES = routed
+    return entries
 
 
 def phase_fused(cat, want_q1, q1_entry: dict, gsl_entry: dict) -> None:
@@ -1690,9 +1823,9 @@ PROCS_ROWS_LOG2 = 24
 PROCS_WARM = 2
 #: per rank, one pass over the primitives: two_phase_sum (1) and the int64
 #: sharded_q1 (one a measure, 5) launch seg_sum64, the int32 sharded_q1
-#: launches q1_grouped_sums once
+#: launches q1_grouped_sums once; no other kernel runs there
 PROCS_LAUNCHES = {"seg_sum64": 6, "q1_grouped_sums": 1,
-                  "grouped_sum_limbs": 0}
+                  "grouped_sum_limbs": 0, "like_match": 0, "substr_keys": 0}
 
 
 def phase_procs(dev, seg: dict, q1: dict, gsl: dict) -> None:
@@ -2790,6 +2923,7 @@ def main(argv) -> int:
     q1, gsl = _timed("kernel fused", phase_kernel_fused, dev)
     torch.cuda.empty_cache()
     cat, resident, want, data = _timed("load", phase_load, dev)
+    dicts = _timed("kernel dict", phase_kernel_dict, dev, cat)
     _timed("fused", phase_fused, cat, want[1], q1, gsl)
     frag = {}
     eng = _timed("slice", phase_slice, dev, cat, resident, want, seg, frag)
@@ -2826,7 +2960,7 @@ def main(argv) -> int:
     _timed("external", phase_external, dev)
     _log(f"chip_smoke: all phases passed in "
          f"{time.perf_counter() - t_start:.1f} s")
-    _log(json.dumps({"kernels": [seg, q1, gsl]}))
+    _log(json.dumps({"kernels": [seg, q1, gsl] + dicts}))
     _log(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -23,7 +24,8 @@ import torch
 from . import config
 from .dtypes import Kind, SQLType, varchar
 
-__all__ = ["Column", "Cand", "StrDict", "capacity_for", "valid_mask"]
+__all__ = ["Column", "Cand", "StrDict", "StrHeap", "capacity_for",
+           "valid_mask"]
 
 
 def capacity_for(n: int) -> int:
@@ -61,14 +63,29 @@ class StrDict:
     """
 
     # _geom_cache: lazily-parsed geometry per distinct value (ops/geom.py)
-    __slots__ = ("values", "_geom_cache")
+    # _heap: the values' UTF-8 byte heap (``heap``), built at first use
+    __slots__ = ("values", "_geom_cache", "_heap")
 
     def __init__(self, values: np.ndarray):
         self.values = np.asarray(values)
         self._geom_cache = None
+        self._heap = None
 
     def __len__(self):
         return len(self.values)
+
+    def heap(self) -> "StrHeap":
+        """The values as one UTF-8 byte heap (``StrHeap``), built once per
+        dictionary at first call and counted in ``STATS["dict_heaps"]``.
+        A dictionary never changes (a table version with other strings
+        brings a new ``StrDict``), so the heap cannot go stale."""
+        if self._heap is None:
+            with _HEAP_LOCK:
+                if self._heap is None:
+                    self._heap = StrHeap(self.values)
+                    from .exec.fragment import stats_inc
+                    stats_inc("dict_heaps")
+        return self._heap
 
     @staticmethod
     def encode(strings: np.ndarray) -> Tuple["StrDict", np.ndarray]:
@@ -99,6 +116,50 @@ class StrDict:
         applies it with one gather by code."""
         return np.fromiter((bool(pred(v)) for v in self.values),
                            count=len(self.values), dtype=np.bool_)
+
+
+_HEAP_LOCK = threading.Lock()
+
+
+class StrHeap:
+    """A dictionary's values as one byte heap, the layout of MonetDB's
+    string heap (gdk/gdk_atoms.c strPut) that the device kernels of
+    ops/dictmap.py read: value ``i`` is ``data[offsets[i]:offsets[i+1]]``,
+    UTF-8 (lone surrogates as ``surrogatepass`` writes them), so byte order
+    is code point order.  ``data`` (uint8) and ``offsets`` (int32, n + 1)
+    are host tensors, pinned where a CUDA device exists so that an upload
+    runs asynchronously.  ``ascii``: every byte is below 0x80; ``nul_free``:
+    no value holds a NUL; ``max_len``: the longest value in bytes;
+    ``fits``: the heap's size fits the int32 offsets (else ``offsets`` is
+    None and no kernel can read it)."""
+
+    __slots__ = ("data", "offsets", "ascii", "nul_free", "max_len", "fits")
+
+    def __init__(self, values: np.ndarray):
+        vals = np.asarray(values).tolist()
+        joined = "".join(vals)
+        self.ascii = joined.isascii()
+        if self.ascii:
+            raw = joined.encode("ascii")
+            lens = np.fromiter(map(len, vals), np.int64, len(vals))
+        else:
+            enc = [v.encode("utf-8", "surrogatepass") for v in vals]
+            raw = b"".join(enc)
+            lens = np.fromiter(map(len, enc), np.int64, len(enc))
+        self.nul_free = b"\0" not in raw
+        self.max_len = int(lens.max()) if len(lens) else 0
+        self.fits = len(raw) < (1 << 31)
+        pin = torch.cuda.is_available()
+        self.data = torch.empty(len(raw), dtype=torch.uint8, pin_memory=pin)
+        if raw:
+            self.data.numpy()[:] = np.frombuffer(raw, np.uint8)
+        self.offsets = None
+        if self.fits:
+            offs = np.zeros(len(lens) + 1, np.int32)
+            np.cumsum(lens, out=offs[1:])
+            self.offsets = torch.empty(len(offs), dtype=torch.int32,
+                                       pin_memory=pin)
+            self.offsets.numpy()[:] = offs
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,9 @@ from ..ops._tensor import (catalog_device, idiv as _idiv, irem as _irem,
                            set_drop as _set_drop, tdt as _tdt)
 from ..obs.profiler import PROFILER
 from ..ops.cuda_kernels import seg_sum64
+from ..ops.dictmap import like_mask, substr_remap
 from ..ops.sort import sort_key
+from ..ops.strfuncs import like_lut
 from ..parallel.mesh import run_shards
 from ..parallel.shuffle import exchange, hash64 as _hash64
 from ..plan import logical as L
@@ -208,6 +210,49 @@ class HScalar:
 # ---------------------------------------------------------------------------
 
 
+def _str_fn(name: str, args: list):
+    """The per-value function of ``Lowering._str_func``'s host map:
+    ``name`` with its constant ``args`` (None for a nil literal)."""
+    def f(s: str) -> str:
+        if name in ("upper", "ucase"):
+            return s.upper()
+        if name in ("lower", "lcase"):
+            return s.lower()
+        if name == "trim":
+            return s.strip() if not args else s.strip(str(args[0]))
+        if name == "ltrim":
+            return s.lstrip() if not args else s.lstrip(str(args[0]))
+        if name == "rtrim":
+            return s.rstrip() if not args else s.rstrip(str(args[0]))
+        if name == "reverse":
+            return s[::-1]
+        if name == "substring":
+            start = int(args[0])
+            out = s[max(start - 1, 0):]
+            if len(args) > 1 and args[1] is not None:
+                out = out[:max(int(args[1]), 0)]
+            return out
+        if name == "left":
+            return s[:max(int(args[0]), 0)]
+        if name == "right":
+            k = max(int(args[0]), 0)
+            return s[-k:] if k else ""
+        if name == "replace":
+            return s.replace(str(args[0]), str(args[1]))
+        if name == "lpad":
+            fill = str(args[1]) if len(args) > 1 else " "
+            k = int(args[0])
+            return (fill * k + s)[-k:] if len(s) < k else s[:k]
+        if name == "rpad":
+            fill = str(args[1]) if len(args) > 1 else " "
+            k = int(args[0])
+            return (s + fill * k)[:k] if len(s) < k else s[:k]
+        if name == "repeat":
+            return s * int(args[0])
+        raise Unsupported(name)
+    return f
+
+
 class Lowering:
     """One-pass plan lowering.  Produces:
     * ``ir``     - hashable nested-tuple program (the jit static arg)
@@ -258,16 +303,22 @@ class Lowering:
 
     @staticmethod
     def _dict_span(*values):
-        """The span of a host map over string dictionary ``values`` (the
-        lut's upload included), counting the values mapped."""
+        """The span of a map over string dictionary ``values`` (on the
+        host with the lut's upload, or the device path's enqueue and heap
+        upload), counting the values mapped; the device path adds them to
+        ``dict_device_values`` too."""
         return PROFILER.span("lower.dict", "dict_ns",
                              count=("dict_values", sum(map(len, values))))
 
-    def _add_lut(self, np_arr: np.ndarray) -> int:
+    def _device(self) -> torch.device:
+        return catalog_device(self.catalog, Unsupported)
+
+    def _add_lut(self, lut) -> int:
+        """A lookup table (a numpy array, or a tensor that a device map
+        made) as an input on the catalog's device."""
         idx = len(self.inputs)
         # port: the lut goes to the device of the catalog's tensors
-        self.inputs.append(torch.as_tensor(
-            np_arr, device=catalog_device(self.catalog, Unsupported)))
+        self.inputs.append(torch.as_tensor(lut, device=self._device()))
         self.input_tables.append(None)
         return idx
 
@@ -1316,51 +1367,22 @@ class Lowering:
             else:
                 args.append(None if la[0] == "nil" else la[1])
 
-        def f(s: str) -> str:
-            if name in ("upper", "ucase"):
-                return s.upper()
-            if name in ("lower", "lcase"):
-                return s.lower()
-            if name == "trim":
-                return s.strip() if not args else s.strip(str(args[0]))
-            if name == "ltrim":
-                return s.lstrip() if not args else s.lstrip(str(args[0]))
-            if name == "rtrim":
-                return s.rstrip() if not args else s.rstrip(str(args[0]))
-            if name == "reverse":
-                return s[::-1]
-            if name == "substring":
-                start = int(args[0])
-                out = s[max(start - 1, 0):]
-                if len(args) > 1 and args[1] is not None:
-                    out = out[:max(int(args[1]), 0)]
-                return out
-            if name == "left":
-                return s[:max(int(args[0]), 0)]
-            if name == "right":
-                k = max(int(args[0]), 0)
-                return s[-k:] if k else ""
-            if name == "replace":
-                return s.replace(str(args[0]), str(args[1]))
-            if name == "lpad":
-                fill = str(args[1]) if len(args) > 1 else " "
-                k = int(args[0])
-                return (fill * k + s)[-k:] if len(s) < k else s[:k]
-            if name == "rpad":
-                fill = str(args[1]) if len(args) > 1 else " "
-                k = int(args[0])
-                return (s + fill * k)[:k] if len(s) < k else s[:k]
-            if name == "repeat":
-                return s * int(args[0])
-            raise Unsupported(name)
-
-        with self._dict_span(pt.sdict.values):
-            mapped = np.array([f(str(v)) for v in pt.sdict.values],
-                              dtype=object)
-            uniq, codes = (np.unique(mapped.astype(str), return_inverse=True)
-                           if len(mapped) else (np.empty(0, dtype=str),
-                                                np.empty(0, dtype=np.int64)))
-            lut = self._add_lut(codes.astype(np.int32))
+        with self._dict_span(pt.sdict.values) as sp:
+            got = substr_remap(pt.sdict, name, args, self._device())
+            if got is not None:
+                codes, uniq = got
+                sp.add_count("dict_device_values", len(pt.sdict))
+                stats_inc("host_reads")     # the distinct keys
+            else:
+                f = _str_fn(name, args)
+                mapped = np.array([f(str(v)) for v in pt.sdict.values],
+                                  dtype=object)
+                uniq, codes = (
+                    np.unique(mapped.astype(str), return_inverse=True)
+                    if len(mapped) else (np.empty(0, dtype=str),
+                                         np.empty(0, dtype=np.int64)))
+                codes = codes.astype(np.int32)
+            lut = self._add_lut(codes)
         out_pt = PT(varchar(), nonil=pt.nonil, sdict=StrDict(uniq))
         return ("lutmap", lut, ir, "<i4"), out_pt
 
@@ -1595,36 +1617,26 @@ class Lowering:
         return p
 
     def _pred_like(self, e: Like, penv) -> tuple:
-        """LIKE -> host regex over the dictionary, device code gather
+        """LIKE -> a bool lut over the dictionary, device code gather
         (ops/strfuncs.py like_cand semantics; strimps analog,
-        gdk/gdk_strimps.c). NOT LIKE inverts the lut so nils stay
-        excluded (SQL three-valued logic)."""
-        import re
+        gdk/gdk_strimps.c): the like_match kernel over the dictionary's
+        heap where ops/dictmap.py takes the map, else host numpy / regex
+        (``like_lut``).  NOT LIKE inverts the lut so nils stay excluded
+        (SQL three-valued logic)."""
         ir, pt = self.expr(e.arg, penv)
         if not pt.is_str or pt.sdict is None:
             raise Unsupported("LIKE over non-dict value")
-        from ..ops.strfuncs import _like_mask_vectorized, like_regex
         caseless = getattr(e, "caseless", False)
-        flags = re.DOTALL | (re.IGNORECASE if caseless else 0)
-        lut = None
-        with self._dict_span(pt.sdict.values):
-            if not getattr(e, "regex", False):
-                # vectorized %-pattern matching over the dict: one numpy
-                # pass per literal segment; survives distincts ~ rows (the
-                # high-cardinality case where a python regex loop
-                # collapses)
-                lut = _like_mask_vectorized(pt.sdict.values, e.pattern,
-                                            e.escape, caseless)
-            if lut is None and getattr(e, "regex", False):
-                rx = re.compile(e.pattern, flags)
-                lut = pt.sdict.match_mask(
-                    lambda v: rx.search(v) is not None)
-            elif lut is None:
-                rx = re.compile(like_regex(e.pattern, e.escape).pattern,
-                                flags)
-                lut = pt.sdict.match_mask(lambda v: rx.match(v) is not None)
-            if e.negated:
-                lut = ~lut
+        regex = getattr(e, "regex", False)
+        with self._dict_span(pt.sdict.values) as sp:
+            lut = None if regex else like_mask(
+                pt.sdict, e.pattern, e.escape, caseless, e.negated,
+                self._device())
+            if lut is not None:
+                sp.add_count("dict_device_values", len(pt.sdict))
+            else:
+                lut = like_lut(pt.sdict, e.pattern, e.negated, e.escape,
+                               caseless, regex)
             li = self._add_lut(lut)
         return ("strpred", li, ir)
 
@@ -3343,7 +3355,10 @@ STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
          # string dictionary values mapped on the host while lowering, and
          # device-to-host reads of the fragment path (scalar fetches,
          # result arrays, executor-run subquery values)
-         "dict_values": 0, "host_reads": 0}
+         "dict_values": 0, "host_reads": 0,
+         # of dict_values, those the device path mapped (ops/dictmap.py);
+         # the dictionaries' byte heaps built (StrDict.heap)
+         "dict_device_values": 0, "dict_heaps": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:

@@ -64,7 +64,7 @@ class Span:
         self._prof = prof
         self.name = name
         self._key = key
-        self._count = count
+        self._count = () if count is None else (count,)
         self._root = root
         self.query = query
         self.attrs = attrs
@@ -103,8 +103,8 @@ class Span:
             stats, lock = _COUNTERS or _counters()
             with lock:
                 stats[self._key] += dur - self._covered
-                if self._count is not None:
-                    stats[self._count[0]] += self._count[1]
+                for key, n in self._count or ():
+                    stats[key] += n
                 if self._root:
                     stats["queries"] += 1
             if self._up is not None:
@@ -114,6 +114,13 @@ class Span:
             self.tid = threading.get_native_id()
             prof.spans.append(self)
         return False
+
+    def add_count(self, key: str, n: int) -> None:
+        """Add ``n`` to the STATS counter ``key`` as well when the span
+        closes, as ``count`` does (and, as it, not inside a
+        ``lower.subquery``)."""
+        if self._count is not None:
+            self._count += ((key, n),)
 
     def view(self) -> Dict[str, Any]:
         """The span as a TRACE event of the reference's shape:

@@ -15,6 +15,15 @@ few atomics per block); the sources under csrc/ say what each design does
 about that.  The TPU kernels split values into 16-bit limbs because Mosaic
 has no 64-bit integers; Hopper has, so these add whole 64-bit values.
 
+Two more replace no TPU kernel: they compute the lowering's maps over a
+string dictionary on the card (ops/dictmap.py), over its UTF-8 byte heap
+(column.StrHeap: ``data`` uint8, ``offsets`` int32):
+
+* ``like_match`` - one bool a value under a SQL LIKE program
+  (strfuncs.like_program);
+* ``substr_keys`` - each value's substring / left / right as a sortable
+  64-bit key of its bytes.
+
 Each kernel has:
   * a wrapper that launches it for CUDA tensors, after checking dtype,
     device, contiguity and shape, and raises if the launch fails.  On a
@@ -36,16 +45,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 __all__ = ["seg_sum64", "seg_sum64_plain", "q1_grouped_sums",
            "q1_grouped_sums_plain", "grouped_sum_limbs",
-           "grouped_sum_limbs_plain", "build", "LAUNCHES", "MAX_DOMAIN",
-           "SEG_SUM_BLOCK"]
+           "grouped_sum_limbs_plain", "like_match", "like_match_plain",
+           "substr_keys", "substr_keys_plain", "build", "LAUNCHES",
+           "MAX_DOMAIN", "SEG_SUM_BLOCK", "LIKE_MAX_OPS", "LIKE_ONE",
+           "LIKE_ANY"]
 
 #: largest group domain the kernels take (the fragment's one-hot bound,
 #: exec/fragment.py _ONEHOT_MAX)
@@ -58,7 +71,11 @@ MAX_DOMAIN = 128
 SEG_SUM_BLOCK = 16384
 
 #: kernel launches so far, by kernel name (see module docstring)
-LAUNCHES = {"seg_sum64": 0, "q1_grouped_sums": 0, "grouped_sum_limbs": 0}
+LAUNCHES = {"seg_sum64": 0, "q1_grouped_sums": 0, "grouped_sum_limbs": 0,
+            "like_match": 0, "substr_keys": 0}
+
+#: longest LIKE program like_match takes (csrc/like_match.cu kMaxOps)
+LIKE_MAX_OPS = 1024
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -79,6 +96,8 @@ _SIGNATURES = {
     "q1_grouped_sums_launch": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P, _I,
                                _I, _P],
     "grouped_sum_limbs_launch": [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _P],
+    "like_match_launch": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P],
+    "substr_keys_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
 }
 
 _fns = None
@@ -350,3 +369,146 @@ def grouped_sum_limbs(code, values, mask, *, domain: int):
             code.data_ptr(), values.data_ptr(), mask.data_ptr(), n, domain,
             out[0].data_ptr(), out[1].data_ptr(), blocks, _THREADS, stream))
     return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# like_match and substr_keys: maps over a string dictionary's byte heap
+# ---------------------------------------------------------------------------
+
+#: the two wildcard ops of a LIKE program (ops 0-255 match that byte;
+#: csrc/like_match.cu kOne, kAny)
+LIKE_ONE, LIKE_ANY = 256, 257
+
+#: one UTF-8 code point (a LIKE program's ``_``) as a bytes regex
+_CODE_POINT = (rb"(?:[\x00-\x7f]|[\x80-\xdf][\x80-\xbf]|"
+               rb"[\xe0-\xef][\x80-\xbf]{2}|[\xf0-\xff][\x80-\xbf]{3})")
+_I32_MAX = (1 << 31) - 1
+
+
+def _heap_values(data: torch.Tensor, offsets: torch.Tensor) -> list:
+    raw = data.cpu().numpy().tobytes()
+    offs = offsets.cpu().tolist()
+    return [raw[a:b] for a, b in zip(offs, offs[1:])]
+
+
+def _check_heap(name: str, data: torch.Tensor,
+                offsets: torch.Tensor) -> torch.device:
+    """``data`` uint8 and ``offsets`` int32 (at least one), both 1-D,
+    contiguous and on one CUDA device; the offsets themselves are a
+    StrHeap's and are not read here (that would wait for the device)."""
+    dev = data.device
+    if dev.type != "cuda" or offsets.device != dev:
+        raise ValueError(f"{name}: data on {dev}, offsets on "
+                         f"{offsets.device}; both must be on one CUDA device")
+    if data.dtype != torch.uint8 or offsets.dtype != torch.int32:
+        raise TypeError(f"{name}: data must be torch.uint8 and offsets "
+                        f"torch.int32, not {data.dtype} / {offsets.dtype}")
+    if data.dim() != 1 or offsets.dim() != 1 or offsets.numel() < 1:
+        raise ValueError(f"{name}: data and offsets must be 1-D, offsets "
+                         f"with n + 1 entries")
+    if not (data.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError(f"{name}: data and offsets must be contiguous")
+    return dev
+
+
+def _value_grid(dev: torch.device, n: int) -> int:
+    """Blocks of a one-thread-a-value kernel: enough for every value, at
+    most 16 of them an SM (a grid-stride loop does the rest)."""
+    return max(1, min(-(-n // _THREADS), _sms(dev) * 16))
+
+
+def like_match_plain(data, offsets, program, *, caseless: bool = False,
+                     dollar_nl: bool = False, negate: bool = False):
+    """Plain like_match: the program as a bytes regex (``%`` any bytes,
+    ``_`` one UTF-8 code point; IGNORECASE on bytes folds ASCII alone),
+    matched in full against each value, and with ``dollar_nl`` also
+    against a value less its final ``\\n``."""
+    parts = []
+    for op in np.asarray(program).tolist():
+        parts.append(b".*" if op == LIKE_ANY else _CODE_POINT
+                     if op == LIKE_ONE else re.escape(bytes([op])))
+    rx = re.compile(b"".join(parts),
+                    re.DOTALL | (re.IGNORECASE if caseless else 0))
+    out = []
+    for v in _heap_values(data, offsets):
+        m = rx.fullmatch(v) is not None
+        if not m and dollar_nl and v.endswith(b"\n"):
+            m = rx.fullmatch(v[:-1]) is not None
+        out.append(m != negate)
+    return torch.tensor(out, dtype=torch.bool, device=data.device)
+
+
+def like_match(data, offsets, program, *, caseless: bool = False,
+               dollar_nl: bool = False, negate: bool = False):
+    """One bool a value of a byte heap (value i = ``data[offsets[i]:
+    offsets[i + 1]]``) under a LIKE ``program`` (int16 ops, at most
+    LIKE_MAX_OPS): ``caseless`` folds the values' ASCII upper case,
+    ``dollar_nl`` also matches a value less its final ``\\n`` (the host
+    regex's ``$``), ``negate`` inverts.  Returns bool[n]."""
+    if _on_cpu(data, offsets):
+        return like_match_plain(data, offsets, program, caseless=caseless,
+                                dollar_nl=dollar_nl, negate=negate)
+    dev = _check_heap("like_match", data, offsets)
+    prog = np.ascontiguousarray(program, dtype=np.int16)
+    if prog.ndim != 1 or len(prog) > LIKE_MAX_OPS:
+        raise ValueError(f"like_match: program of {prog.shape} ops; at most "
+                         f"{LIKE_MAX_OPS}, 1-D")
+    fn = build()["like_match_launch"]
+    n = offsets.numel() - 1
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    flags = int(caseless) | int(dollar_nl) << 1 | int(negate) << 2
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _launched("like_match", fn(
+            data.data_ptr(), offsets.data_ptr(), n, prog.ctypes.data,
+            len(prog), flags, out.data_ptr(), _value_grid(dev, n), _THREADS,
+            stream))
+    return out
+
+
+def _pack_key(b: bytes) -> int:
+    """Up to 8 bytes big-endian, zero-padded, top bit flipped, as int64."""
+    k = int.from_bytes(b[:8].ljust(8, b"\0"), "big") ^ (1 << 63)
+    return k - (1 << 64) if k >= 1 << 63 else k
+
+
+def substr_keys_plain(data, offsets, *, start: int, count: int,
+                      right: bool = False):
+    """Plain substr_keys: each value decoded, sliced as a Python str and
+    packed by ``_pack_key``."""
+    out = []
+    for v in _heap_values(data, offsets):
+        s = v.decode("utf-8", "surrogatepass")
+        if right:
+            r = s[max(len(s) - count, 0):] if count else ""
+        else:
+            r = s[start:] if count < 0 else s[start:start + count]
+        out.append(_pack_key(r.encode("utf-8", "surrogatepass")))
+    return torch.tensor(out, dtype=torch.int64, device=data.device)
+
+
+def substr_keys(data, offsets, *, start: int, count: int,
+                right: bool = False):
+    """Each value of a byte heap cut to its code points ``[start, start +
+    count)`` (``count`` -1: to the end), or with ``right`` to its last
+    ``count``, as an int64 key: the result's bytes big-endian, zero-padded,
+    top bit flipped, so that int64 order is the results' byte order (and
+    Python's str order).  Results longer than 8 bytes are cut to 8: the
+    caller routes those to the host.  Returns int64[n]."""
+    if _on_cpu(data, offsets):
+        return substr_keys_plain(data, offsets, start=start, count=count,
+                                 right=right)
+    dev = _check_heap("substr_keys", data, offsets)
+    if not (0 <= start <= _I32_MAX and (0 if right else -1) <= count
+            <= _I32_MAX):
+        raise ValueError(f"substr_keys: start {start}, count {count} out "
+                         f"of range")
+    fn = build()["substr_keys_launch"]
+    n = offsets.numel() - 1
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _launched("substr_keys", fn(
+            data.data_ptr(), offsets.data_ptr(), n, start, count, int(right),
+            keys.data_ptr(), _value_grid(dev, n), _THREADS, stream))
+    return keys

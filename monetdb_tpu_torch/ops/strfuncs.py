@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..column import Cand, Column, StrDict, valid_mask
+from .cuda_kernels import LIKE_ANY, LIKE_ONE
 
 __all__ = ["like_regex", "like_cand", "lut_cand", "in_strings_cand",
            "substring", "map_dict", "concat"]
@@ -43,6 +44,29 @@ def like_regex(pattern: str, escape: Optional[str] = None) -> "re.Pattern":
             out.append(re.escape(ch))
         i += 1
     return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+def like_program(pattern: str, escape: Optional[str] = None,
+                 caseless: bool = False) -> np.ndarray:
+    """The LIKE pattern as the program of the device matcher
+    (csrc/like_match.cu): int16 ops, ``LIKE_ANY`` for ``%``, ``LIKE_ONE``
+    for ``_`` (one code point) and each literal's UTF-8 bytes, lower-cased
+    first when ``caseless``.  Tokenized exactly as ``like_regex`` reads the
+    pattern (an escape character at its very end is itself)."""
+    ops = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        i += 1
+        if escape and ch == escape and i < len(pattern):
+            ch = pattern[i]
+            i += 1
+        elif ch in "%_":
+            ops.append(LIKE_ANY if ch == "%" else LIKE_ONE)
+            continue
+        ops.extend((ch.lower() if caseless else ch).encode(
+            "utf-8", "surrogatepass"))
+    return np.array(ops, np.int16)
 
 
 def _to_dev(lut: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -86,21 +110,28 @@ def like_cand(col: Column, pattern: str, negated: bool = False,
     NOT LIKE excludes nils (SQL three-valued logic), which the code>=0
     test in the gather already enforces. caseless = ILIKE; regex = raw
     PCRE-style pattern (modules/mal/pcre.c likematch/rematch)."""
+    return lut_cand(col, like_lut(col.sdict, pattern, negated, escape,
+                                  caseless, regex), cand)
+
+
+def like_lut(sdict: StrDict, pattern: str, negated: bool = False,
+             escape: Optional[str] = None, caseless: bool = False,
+             regex: bool = False) -> np.ndarray:
+    """The host's bool table of a LIKE / ILIKE / regex predicate over a
+    dictionary's values (inverted for NOT): numpy's vectorized pass for
+    %-only patterns, else a Python regex a value."""
     flags = re.DOTALL | (re.IGNORECASE if caseless else 0)
     lut = None
     if not regex:
-        lut = _like_mask_vectorized(col.sdict.values, pattern,
-                                    escape, caseless)
+        lut = _like_mask_vectorized(sdict.values, pattern, escape, caseless)
     if lut is None:
         if regex:
             rx = re.compile(pattern, flags)
-            lut = col.sdict.match_mask(lambda v: rx.search(v) is not None)
+            lut = sdict.match_mask(lambda v: rx.search(v) is not None)
         else:
             rx = re.compile(like_regex(pattern, escape).pattern, flags)
-            lut = col.sdict.match_mask(lambda v: rx.match(v) is not None)
-    if negated:
-        lut = ~lut
-    return lut_cand(col, lut, cand)
+            lut = sdict.match_mask(lambda v: rx.match(v) is not None)
+    return ~lut if negated else lut
 
 
 def _like_mask_vectorized(values: np.ndarray, pattern: str,

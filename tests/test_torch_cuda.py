@@ -1208,7 +1208,8 @@ def test_hybrid_mesh_on_one_card(cuda_device):
                      warm=0, dead=100, timeout=60, local=2)
     assert res["ranks"] == 2 and res["local"] == 2 and not res["differ"]
     assert res["launches_per_rank"] == [
-        {"seg_sum64": 12, "q1_grouped_sums": 2, "grouped_sum_limbs": 0}] * 2
+        {"seg_sum64": 12, "q1_grouped_sums": 2, "grouped_sum_limbs": 0,
+         "like_match": 0, "substr_keys": 0}] * 2
 
 
 @pytest.mark.cuda
@@ -1249,7 +1250,8 @@ def test_bench_loops_on_gpu_match_numpy(cuda_device):
         launched = {k: CK.LAUNCHES[k] - before[k] for k in before}
         assert int(two) == want(0) + want(1), loop.__name__
         assert launched == {"seg_sum64": 10 if loop is B.seg_loop else 0,
-                            "q1_grouped_sums": 0, "grouped_sum_limbs": 0}
+                            "q1_grouped_sums": 0, "grouped_sum_limbs": 0,
+                            "like_match": 0, "substr_keys": 0}
     got = B.groupby_sums(*args[:2], 3, nseg)
     assert np.array_equal(got.cpu().numpy(),
                           B.groupby_numpy(sid, vals, 3, nseg))

@@ -30,6 +30,9 @@ READERS = {
     "decode_span_ms": (("decode_ns",), 1e-6),
     "decode_span_ms.session": (("decode_ns",), 1e-6),
 }
+#: reader -> the counters whose window deltas it divides
+RATIOS = {"dict_device_share.session": ("dict_device_values",
+                                        "dict_values")}
 NS = ("sql_ns", "parse_ns", "bind_ns", "lower_ns", "dict_ns",
       "subquery_ns", "dispatch_ns", "wait_ns", "fetch_ns", "decode_ns",
       "executor_ns")
@@ -70,10 +73,24 @@ def _run(window, trace=True, drop=()):
 
 def test_every_reader_is_in_the_benchmark():
     per_layer = {m["name"]: m for m in tiny.bench()["per_layer"]}
-    for name in READERS:
+    for name in (*READERS, *RATIOS):
         assert per_layer[name]["source"] == "program_counter"
     assert {n for n, m in per_layer.items()
-            if m["source"] == "program_counter"} == set(READERS)
+            if m["source"] == "program_counter"} == {*READERS, *RATIOS}
+
+
+@pytest.mark.parametrize("name", sorted(RATIOS))
+def test_ratio_reader_divides_its_counters(window, name):
+    """On the CPU every map stays on the host: the share reads 0."""
+    part, whole = RATIOS[name]
+    _cell, _answers, counters = window
+    read = harness.load_module("metrics", name).read
+    assert counters[f"fragment.{whole}"] > 0
+    assert read(_run(window)) == counters[f"fragment.{part}"] / \
+        counters[f"fragment.{whole}"] == 0
+    assert read(_run(window, trace=False)) is None
+    assert read(_run(window, drop=(part,))) is None
+    assert read(_run(window, drop=(whole,))) is None
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
