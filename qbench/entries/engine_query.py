@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["open_entry", "props"]
+__all__ = ["open_entry", "halve", "props"]
 
 
 def props(vals) -> dict:
@@ -96,3 +96,12 @@ class EngineEntry:
 
 def open_entry(cfg: dict, data: dict, device) -> EngineEntry:
     return EngineEntry(cfg, data, device)
+
+
+def halve(entry: EngineEntry) -> EngineEntry:
+    """The tests' fault of half the batch left out: the largest table's
+    column counts halved, so that every scan sees its first half."""
+    t = max(entry.engine.catalog.tables.values(), key=lambda t: t.count)
+    for c in t.columns.values():
+        c.count //= 2
+    return entry

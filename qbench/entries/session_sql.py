@@ -9,7 +9,7 @@ as the port's ``load_tpch_db`` does); the first query uploads them.
 
 from __future__ import annotations
 
-__all__ = ["open_entry"]
+__all__ = ["open_entry", "halve"]
 
 
 def sql_type(tag: str):
@@ -45,3 +45,14 @@ class SessionEntry:
 
 def open_entry(cfg: dict, data: dict, device) -> SessionEntry:
     return SessionEntry(cfg, data, device)
+
+
+def halve(entry: SessionEntry) -> SessionEntry:
+    """The tests' fault of half the batch left out: the second half of the
+    largest table's rows marked deleted, and its version bumped so that
+    the Session uploads it again."""
+    from monetdb_tpu_torch.storage.database import _next_version
+    td = max(entry.db.tables.values(), key=lambda t: t.count)
+    td.deleted[td.count // 2:] = True
+    td.version = _next_version()
+    return entry

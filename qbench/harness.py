@@ -11,7 +11,12 @@ per-layer metric is found by its name in ``BENCHMARK.json``:
 * ``qbench/mixes/<traffic>.json``: the queries of the mix and how they
   are issued;
 * ``qbench/metrics/<metric>.py``: a ``read(run)`` that returns the
-  metric's value or None.
+  metric's value or None;
+* ``qbench/tests/sizes/<config>.json``: the keys a CPU test overrides
+  (``qbench/tests/tiny.py``); a run never reads it.
+
+Each entry module exports ``open_entry(cfg, data, device)`` and, for the
+tests' fault of half the batch left out, ``halve(entry)``.
 
 An end-to-end metric named ``<quantity>.<family>`` (``qps.session``)
 reports the quantity of its base name for the cells it lists: cells whose
@@ -109,11 +114,15 @@ class Answer:
 
 class Run:
     """What a per-layer metric reads: the window's answers, the traced
-    passes' device trace, the program's counters and the cell."""
+    passes' device trace, the program's counters (their window deltas)
+    and the cell; and of set-up, its phases' seconds (``start_s``,
+    ``generate_s``, ``load_s``, ``warmup_s``, which add up to ``setup_s``)
+    and the program's counters as they stood at its end."""
 
     def __init__(self, cell: Cell, answers: List[Answer], window_s: float,
                  trace, counters: dict, table_rows: Dict[str, int],
-                 device_kind: str):
+                 device_kind: str, setup: Optional[dict] = None,
+                 setup_counters: Optional[dict] = None):
         self.cell = cell
         self.answers = answers
         self.window_s = window_s
@@ -121,6 +130,8 @@ class Run:
         self.counters = counters
         self.table_rows = table_rows
         self.device_kind = device_kind
+        self.setup = setup or {}
+        self.setup_counters = setup_counters or {}
 
     def query_bytes(self, qid: str) -> int:
         return stats.query_bytes(self.cell.texts[qid], self.cell.cfg["schema"],
@@ -239,30 +250,38 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     ref = load_module("reference", cfg["reference"])
     texts = {q: cell.texts[q] for q in cell.qids}
 
-    t = time.perf_counter()
+    # set-up in contiguous phases: each starts where the one before ended
+    t_gen = time.perf_counter()
     data = gen.generate(cfg, seed, device)
     table_rows = _table_rows(data)
-    log(f"generate: {time.perf_counter() - t:.3f} s, rows {table_rows}")
-    t = time.perf_counter()
+    log(f"generate: {time.perf_counter() - t_gen:.3f} s, rows {table_rows}")
+    t_load = time.perf_counter()
     entry = entry_mod.open_entry(cfg, data, device)
     if fault is not None:
         entry = fault(entry)
-    log(f"load: {time.perf_counter() - t:.3f} s")
+    log(f"load: {time.perf_counter() - t_load:.3f} s")
     spans = None
     if trace:
         spans = tracing.Spans()
         spans.install()
     rng = random.Random(seed)
-    t = time.perf_counter()
+    t_warm = time.perf_counter()
     for _ in range(int(mix["warmup_passes"])):
         for q in cell.qids:
             a = _ask(entry, q, texts[q], spans, False)
             if a.error is not None:
                 log(f"warm-up: Q{q} raised {a.error}")
     sync()
-    log(f"warm-up: {time.perf_counter() - t:.3f} s, "
+    log(f"warm-up: {time.perf_counter() - t_warm:.3f} s, "
         f"{mix['warmup_passes']} passes")
-    setup_s = time.perf_counter() - t_start
+    t_end = time.perf_counter()
+    setup_s = t_end - t_start
+    setup = {"start_s": t_gen - t_start, "generate_s": t_load - t_gen,
+             "load_s": t_warm - t_load, "warmup_s": t_end - t_warm}
+    setup_counters = _counters()
+    log("set-up: " + ", ".join(f"{k} {v:.3f}" for k, v in setup.items())
+        + f" (setup_s {setup_s:.3f}); counters "
+        + str({k: v for k, v in setup_counters.items() if v}))
     tracer = None
     if trace:
         tracer = _Tracer(int(mix["trace_passes"]), lambda: [
@@ -311,7 +330,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     checks = compare.judge(answers, want, float(cfg["float_rel_limit"]))
     run = Run(cell, answers, window_s, tracer.result if tracer else None,
               counters, table_rows,
-              torch.cuda.get_device_name(device) if cuda else "cpu")
+              torch.cuda.get_device_name(device) if cuda else "cpu",
+              setup=setup, setup_counters=setup_counters)
     return _result(run, setup_s, max(peak_setup, peak_window), peak_window,
                    checks, trace, log), checks
 

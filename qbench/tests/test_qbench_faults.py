@@ -6,7 +6,8 @@ timed path broken underneath is not, once for each fault a cell can have
 * ``altered``: an answer altered where it is produced (one value of the
   first row of one query, every time it runs);
 * ``half``: half of the batch left out (the fact table's live rows
-  halved underneath the entry, so every scan sees the first half);
+  halved underneath the entry, so every scan sees the first half: the
+  entry module's own ``halve``);
 * ``unchanged``: a step that returns its state unchanged (each query
   answers with the previous query's result).
 
@@ -61,21 +62,6 @@ class _Unchanged:
         self.entry.close()
 
 
-def _half(entry):
-    """Leave out the second half of the largest table's rows."""
-    if hasattr(entry, "db"):                       # session_sql
-        from monetdb_tpu_torch.storage.database import _next_version
-        td = max(entry.db.tables.values(), key=lambda t: t.count)
-        td.deleted[td.count // 2:] = True
-        td.version = _next_version()
-    else:                                          # engine_query
-        cat = entry.engine.catalog
-        t = max(cat.tables.values(), key=lambda t: t.count)
-        for c in t.columns.values():
-            c.count //= 2
-    return entry
-
-
 def _run(workload, fault=None):
     cell = tiny.cell(workload)
     return harness.run_cell(cell, SEED, 0.5, False, "cpu",
@@ -87,7 +73,7 @@ def _faults(cell):
     # the fault goes into the query whose answer is largest-valued first
     text = cell.texts[cell.qids[0]]
     return {"altered": lambda e: _Altered(e, text),
-            "half": _half,
+            "half": harness.load_module("entries", cell.cfg["entry"]).halve,
             "unchanged": _Unchanged}
 
 
@@ -124,12 +110,14 @@ def test_result_line_shape():
 
 def test_traced_run_reads_the_host_metrics():
     """On the CPU the profiler sees no device: the traced run is still
-    correct, reads ``lower_ms`` and ``decode_ms.session`` and leaves out
-    the metrics that need a device trace."""
+    correct, reads the host clock's ``lower_ms``, ``decode_ms.session``,
+    ``load_s`` and ``warmup_s`` and leaves out the metrics that need a
+    device trace."""
     cell = tiny.cell("tpch-sf1.power")
     out, _ = harness.run_cell(cell, SEED, 0.5, True, "cpu",
                               time.perf_counter(), log=lambda m: None)
     assert out["correct"], out["checks"]
-    assert set(out["metrics"]) == {"lower_ms", "decode_ms.session"}
+    assert set(out["metrics"]) == {"lower_ms", "decode_ms.session",
+                                   "load_s", "warmup_s"}
     assert out["metrics"]["lower_ms"]["value"] > 0
     assert "busy_s" not in out["device"] and "breakdown" not in out

@@ -1,6 +1,6 @@
 """``BENCHMARK.json`` against the benchmark's contract, and every name in it
-found as a file: configurations, mixes, query sets, generators, entries,
-references and per-layer metrics load by name."""
+found as a file: configurations, their CPU sizes, mixes, query sets,
+generators, entries, references and per-layer metrics load by name."""
 
 import json
 import os
@@ -15,6 +15,9 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 B = tiny.bench()
+#: what a configuration's CPU sizes may not override: only its scale
+NOT_SCALE = {"name", "entry", "generator", "queries", "reference", "schema",
+             "guarantees", "float_rel_limit"}
 
 
 def _line(s: str) -> bool:
@@ -51,6 +54,16 @@ def test_configs():
             harness.load_module(kind, cfg[key])
         harness.load_json(f"qbench/queries/{cfg['queries']}.json")
         assert "guarantees" in cfg and "assumed" in cfg
+        small = tiny.sizes(c["name"])
+        assert small and set(small) <= set(cfg) - NOT_SCALE, small
+
+
+@pytest.mark.parametrize("entry", sorted(
+    f[:-3] for f in os.listdir(os.path.join(harness.QB, "entries"))
+    if f.endswith(".py") and f != "__init__.py"))
+def test_entries_export_open_entry_and_halve(entry):
+    mod = harness.load_module("entries", entry)
+    assert callable(mod.open_entry) and callable(mod.halve)
 
 
 def test_workloads():

@@ -1,14 +1,12 @@
-"""Cells at sizes a CPU test holds: the configurations' scales cut, every
-other setting as committed."""
+"""Cells at sizes a CPU test holds: the configurations' scales cut by
+``qbench/tests/sizes/<config>.json``, every other setting as committed."""
 
 import json
 import os
 
 from qbench import harness
 
-#: per configuration, the keys a test changes
-TINY = {"tpch-sf1": {"scale_factor": 0.01},
-        "ssb-sf20": {"scale_factor": 0.01, "rows": {"lineorder": 30000}}}
+SIZES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sizes")
 
 
 def bench() -> dict:
@@ -16,10 +14,16 @@ def bench() -> dict:
         return json.load(f)
 
 
+def sizes(config: str) -> dict:
+    """The keys a CPU test overrides in ``config``."""
+    with open(os.path.join(SIZES, f"{config}.json")) as f:
+        return json.load(f)
+
+
 def cell(workload: str) -> harness.Cell:
     b = bench()
     w = [w for w in b["workloads"] if w["name"] == workload][0]
-    return harness.Cell(b, workload, TINY[w["config"]])
+    return harness.Cell(b, workload, sizes(w["config"]))
 
 
 def workloads() -> list:
