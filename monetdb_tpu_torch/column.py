@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,7 +26,7 @@ from . import config
 from .dtypes import Kind, SQLType, varchar
 
 __all__ = ["Column", "Cand", "StrDict", "StrHeap", "capacity_for",
-           "valid_mask"]
+           "valid_mask", "upload_padded"]
 
 
 def capacity_for(n: int) -> int:
@@ -41,10 +42,42 @@ def valid_mask(cap: int, count, device) -> torch.Tensor:
     return torch.arange(cap, dtype=torch.int32, device=device) < count
 
 
-def _pad_np(arr: np.ndarray, cap: int, fill) -> np.ndarray:
-    out = np.full(cap, fill, dtype=arr.dtype)
-    out[: len(arr)] = arr
-    return out
+def upload_padded(arr: np.ndarray, cap: int, fill, device,
+                  clock: Optional[str] = None) -> torch.Tensor:
+    """A ``cap``-slot tensor on ``device`` whose first ``len(arr)`` slots
+    are ``arr`` and whose tail is ``fill``: the live rows are copied as
+    they are and the tail is filled on the device, so no padded host copy
+    is made.  ``clock`` names an ``exec.fragment.STATS`` counter charged
+    with the copy's own time in ns (CUDA events around it on a CUDA
+    device, the host clock elsewhere)."""
+    n = len(arr)
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    data = torch.empty(cap, dtype=src.dtype, device=device)
+    if clock is None:
+        data[:n].copy_(src)
+    else:
+        _timed_copy(data[:n], src, clock)
+    if cap > n:
+        data[n:].fill_(fill.item() if isinstance(fill, np.generic) else fill)
+    return data
+
+
+def _timed_copy(dst: torch.Tensor, src: torch.Tensor, clock: str) -> None:
+    from .exec.fragment import stats_inc
+    if dst.device.type == "cuda":
+        with torch.cuda.device(dst.device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src)
+            end.record()
+            end.synchronize()
+            ns = int(start.elapsed_time(end) * 1e6)
+    else:
+        t0 = time.perf_counter_ns()
+        dst.copy_(src)
+        ns = time.perf_counter_ns() - t0
+    stats_inc(clock, ns)
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +302,8 @@ class Column:
     def from_numpy(arr: np.ndarray, typ: Optional[SQLType] = None,
                    sdict: Optional[StrDict] = None, *, device,
                    **props) -> "Column":
-        """Pad ``arr`` to its bucketed capacity and upload it to
-        ``device``."""
+        """Upload ``arr`` to ``device`` in a tensor of its bucketed
+        capacity (``upload_padded``)."""
         arr = np.asarray(arr)
         if typ is None:
             from . import dtypes as dt
@@ -282,12 +315,11 @@ class Column:
         cap = capacity_for(n)
         fill = typ.nil if typ.np_dtype.kind != "b" else False
         phys = arr.astype(typ.np_dtype, copy=False)
-        padded = _pad_np(phys, cap, fill)
         nonil = props.pop("nonil", None)
         if nonil is None:
             from .dtypes import is_nil_np
             nonil = not bool(is_nil_np(phys, typ).any())
-        data = torch.from_numpy(padded).to(device)
+        data = upload_padded(phys, cap, fill, device)
         return Column(typ, data, n, nonil=nonil, sdict=sdict, **props)
 
     @staticmethod
@@ -305,6 +337,10 @@ class Column:
     @property
     def cap(self) -> int:
         return self.data.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
 
     def live_mask(self) -> torch.Tensor:
         return valid_mask(self.cap, self.count, self.data.device)

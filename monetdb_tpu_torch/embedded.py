@@ -4,7 +4,9 @@ prepare/bind/execute/append/dump; monetdbe.c).
 
 Python-native shapes: results come back as column dicts of numpy arrays
 (zero extra copies beyond device→host), appends take numpy arrays —
-the same bulk-columnar contract monetdbe_append has in C.
+the same bulk-columnar contract monetdbe_append has in C — and text
+columns also as ``Categorical`` (int32 codes over a sorted dictionary,
+pandas' shape), which the store takes without touching a string.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import numpy as np
 
 from .engine import Result
 from .session import Session
+from .storage.columns import Categorical, to_physical_bulk
 from .storage.database import Database
 
-__all__ = ["connect", "Connection"]
+__all__ = ["connect", "Connection", "Categorical"]
 
 
 class Connection:
@@ -60,18 +63,23 @@ class Connection:
     # -- monetdbe_append ------------------------------------------------------
     def append(self, table: str, data: Dict[str, np.ndarray]) -> int:
         """Bulk columnar append (monetdbe_append): logical numpy arrays
-        (dates as datetime64/date objects, strings as object/str)."""
+        (numbers, dates as datetime64 or date objects, strings as str or
+        object arrays with None for NULL, or a ``Categorical``), one per
+        column.  Numpy arrays of a kind the column's type takes are
+        converted in bulk (``to_physical_bulk``).  The store keeps copies:
+        the caller may refill or change its arrays once the call returns."""
         td = self.db.tables[table.lower()]
-        from .storage.columns import to_physical_np
         arrays = {}
         n = None
         for c in td.order:
             if c not in data:
                 raise KeyError(f"missing column {c}")
-            vals = list(data[c])
+            arrays[c] = to_physical_bulk(data[c], td.types[c])
             if n is None:
-                n = len(vals)
-            arrays[c] = to_physical_np(vals, td.types[c])
+                n = len(arrays[c])
+            elif len(arrays[c]) != n:
+                raise ValueError(f"column {c} has {len(arrays[c])} values, "
+                                 f"not {n}")
         if not n:
             return 0
         return self.db.insert(table, arrays)

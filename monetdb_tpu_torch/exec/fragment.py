@@ -3358,7 +3358,14 @@ STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
          "dict_values": 0, "host_reads": 0,
          # of dict_values, those the device path mapped (ops/dictmap.py);
          # the dictionaries' byte heaps built (StrDict.heap)
-         "dict_device_values": 0, "dict_heaps": 0}
+         "dict_device_values": 0, "dict_heaps": 0,
+         # the store's load path (storage/database.py): bulk appends and
+         # their rows, text columns' dictionary encode and merge, and the
+         # upload of a table version with its flag scans, in host ns; the
+         # bytes it copied to the device and those copies' own time
+         # (CUDA events on a card)
+         "append_ns": 0, "append_rows": 0, "load_dict_ns": 0,
+         "upload_ns": 0, "upload_bytes": 0, "upload_copy_ns": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:

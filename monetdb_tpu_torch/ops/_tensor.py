@@ -53,7 +53,7 @@ def catalog_device(catalog, error=ValueError) -> torch.device:
     ``device`` attribute, which a store's catalog carries even when it
     holds no table); raises ``error`` when they are spread over several
     (or there is none)."""
-    devs = {c.data.device for t in catalog.tables.values()
+    devs = {c.device for t in catalog.tables.values()
             for c in t.columns.values()}
     if getattr(catalog, "device", None) is not None:
         devs.add(catalog.device)

@@ -21,7 +21,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..dtypes import BOOL, F64, I32, I64, varchar
+from ..dtypes import BOOL, F64, I32, I64, Kind, varchar
 from ..ops._tensor import catalog_device
 from ..table import Catalog, Table
 
@@ -169,9 +169,12 @@ def _storage_rows(cat: Catalog):
             c = t.col(cname)
             nbytes = c.data.numel() * c.data.element_size()
             dictsize = len(c.sdict.values) if c.sdict is not None else 0
+            # a text column's code flags serve the planner only: the
+            # catalog reports none, as the reference package derives none
+            flags = (False, False, False) if c.typ.kind == Kind.STR else \
+                (bool(c.sorted), bool(c.revsorted), bool(c.key))
             rows.append((tname, cname, str(c.typ), c.count, int(nbytes),
-                         bool(c.sorted), bool(c.revsorted), bool(c.key),
-                         bool(c.nonil), dictsize))
+                         *flags, bool(c.nonil), dictsize))
     return rows
 
 
@@ -345,7 +348,8 @@ def _keys_rows(cat: Catalog):
             continue
         t = cat.get(tname)
         for cname in t.names():
-            if cname != "__rowid__" and t.col(cname).key:
+            c = t.col(cname)
+            if cname != "__rowid__" and c.key and c.typ.kind != Kind.STR:
                 rows.append((_oid(cat, "key", f"{tname}.{cname}"),
                              _oid(cat, "table", tname), 0,
                              f"{tname}_{cname}_pkey", -1, -1))

@@ -27,15 +27,17 @@ import json
 import os
 import tarfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..column import StrDict
 from ..dtypes import Kind, SQLType
+from ..obs.profiler import PROFILER
 from ..table import Catalog, Table
-from .columns import make_device_column, tag_type, type_tag
+from .columns import (NIL_CODE, Categorical, RowidColumn, make_device_column,
+                      str_nilmask, tag_type, type_tag)
 from .wal import (REC_COMMIT, REC_CREATE, REC_CREATE_VIEW, REC_DDL,
                   REC_DELETE, REC_DROP, REC_DROP_VIEW, REC_INSERT,
                   REC_UPDATE, Wal)
@@ -163,53 +165,110 @@ class TableData:
         td.version = self.version
         return td
 
-    # -- mutations (physical domain; strings arrive as raw str arrays) -------
+    # -- mutations (physical domain; strings arrive as str or object arrays
+    #    or as a Categorical) -------------------------------------------------
     def append(self, arrays: Dict[str, np.ndarray]) -> None:
-        n = len(next(iter(arrays.values())))
-        for c in self.order:
-            t = self.types[c]
-            a = arrays[c]
-            if t.kind == Kind.STR:
-                self._append_strings(c, a)
-            else:
-                self.cols[c] = np.concatenate(
-                    [self.cols[c], a.astype(t.np_dtype, copy=False)])
-        self.deleted = np.concatenate([self.deleted, np.zeros(n, np.bool_)])
+        """Append a batch, column by column, with no Python per value, in
+        a ``load.append`` span (``Database.insert`` opens its own around
+        the checks and the WAL record as well and calls ``_append``)."""
+        with PROFILER.span("load.append", "append_ns",
+                           count=("append_rows", _rows(arrays))):
+            self._append(arrays)
+
+    def _append(self, arrays: Dict[str, np.ndarray]) -> None:
+        """The text columns (in a ``load.dict`` span), then the others;
+        a batch of ``_PARALLEL_ROWS`` rows or more takes the columns of
+        each phase in parallel threads, one a column (numpy's sorts and
+        copies release the GIL, and each column's state is its own)."""
+        n = _rows(arrays)
+        par = n >= _PARALLEL_ROWS
+        text = [c for c in self.order if self.types[c].kind == Kind.STR]
+        if text:
+            with PROFILER.span("load.dict", "load_dict_ns"):
+                _each(lambda c: self._append_strings(c, arrays[c]), text,
+                      par)
+        _each(lambda c: self._append_values(c, arrays[c]),
+              [c for c in self.order if c not in text], par)
+        self.deleted = np.zeros(n, np.bool_) if not self.count else \
+            np.concatenate([self.deleted, np.zeros(n, np.bool_)])
         self.version = _next_version()
 
-    _NIL_CODE = np.int32(np.iinfo(np.int32).min)
+    def _append_values(self, c: str, a) -> None:
+        b = np.asarray(a).astype(self.types[c].np_dtype, copy=False)
+        self._extend(c, b, np.may_share_memory(a, b))
 
-    def _append_strings(self, c: str, new: np.ndarray) -> None:
+    def _extend(self, c: str, a: np.ndarray, foreign: bool) -> None:
+        """Append ``a`` to column ``c``.  Into an empty column an array
+        that the store made for this batch (a cast, a dictionary's codes)
+        is adopted; one that ``foreign`` says may share the caller's
+        memory is copied, as a concatenation would, since the caller may
+        refill its buffer after the append returns."""
+        if len(self.cols[c]):
+            self.cols[c] = np.concatenate([self.cols[c], a])
+        else:
+            self.cols[c] = np.array(a) if foreign else \
+                np.ascontiguousarray(a)
+
+    _NIL_CODE = NIL_CODE
+
+    def _append_strings(self, c: str, new) -> None:
         """Order-preserving dictionary maintenance: merge, remap old codes
         (the engine-wide invariant that code order == string order; the
-        reference's dict.c rebuilds on overflow the same way). None entries
-        (SQL NULL) get the nil code and never enter the dictionary."""
-        new = np.asarray(new, dtype=object)
-        isnil = np.array([v is None for v in new], dtype=bool)
-        vals = new[~isnil].astype(str) if (~isnil).any() else \
-            np.empty(0, dtype=str)
-        old_dict = self.dicts[c]
-        fresh = np.setdiff1d(np.unique(vals), old_dict) if len(vals) \
-            else np.empty(0, dtype=str)
+        reference's dict.c rebuilds on overflow the same way). NULLs get
+        the nil code and never enter the dictionary.  A batch of strings
+        is encoded with one sort of its values; a ``Categorical`` brings
+        its sorted dictionary, which is kept once the categories no row
+        uses are dropped, so that either way the dictionary holds
+        exactly the strings the table has."""
+        if isinstance(new, Categorical):
+            cat = new.used()
+            codes, uniq = cat.codes, cat.categories
+            if np.may_share_memory(uniq, new.categories):
+                uniq = uniq.copy()
+            foreign = np.may_share_memory(codes, new.codes)
+        else:
+            new = np.asarray(new)
+            isnil = str_nilmask(new)
+            vals = new[~isnil] if isnil.any() else new
+            if vals.dtype.kind != "U":
+                vals = vals.astype(str)
+            uniq, inv = np.unique(vals, return_inverse=True)
+            codes = np.full(len(new), NIL_CODE, np.int32)
+            codes[~isnil] = inv.reshape(-1)
+            foreign = False
+        self._merge_codes(c, uniq, codes, foreign)
+
+    def _merge_codes(self, c: str, uniq: np.ndarray, codes: np.ndarray,
+                     foreign: bool) -> None:
+        """Append ``codes`` over the sorted unique dictionary ``uniq`` to
+        column ``c`` (``foreign`` as ``_extend`` takes it), merging
+        ``uniq`` into the column's dictionary:
+        in place when every new string sorts after its tail (the old
+        codes stay valid: append-friendly data such as monotonic ids,
+        timestamps, log lines), else by a remap of the old codes."""
+        old = self.dicts[c]
+        if not len(old):
+            self.dicts[c] = uniq
+            self._extend(c, codes, foreign)
+            return
+        pos = np.searchsorted(old, uniq)
+        found = old[np.minimum(pos, len(old) - 1)] == uniq
+        fresh = uniq[~found]
         if len(fresh):
-            if len(old_dict) == 0 or fresh[0] > old_dict[-1]:
-                # every new distinct sorts after the dictionary tail:
-                # extend in place, existing codes stay valid - O(batch)
-                # instead of the O(table) remap (append-friendly data:
-                # monotonic ids, timestamps, log lines)
-                self.dicts[c] = np.concatenate([old_dict, fresh])
+            if fresh[0] > old[-1]:
+                self.dicts[c] = np.concatenate([old, fresh])
             else:
-                merged = np.concatenate([old_dict, fresh])
-                merged.sort(kind="stable")
-                remap = np.searchsorted(merged, old_dict).astype(np.int32)
+                merged = np.union1d(old, fresh)
+                remap = np.searchsorted(merged, old).astype(np.int32)
                 old_codes = self.cols[c]
                 self.cols[c] = np.where(old_codes >= 0, remap[np.clip(
                     old_codes, 0, None)], old_codes).astype(np.int32)
                 self.dicts[c] = merged
-        codes = np.full(len(new), self._NIL_CODE, np.int32)
-        if len(vals):
-            codes[~isnil] = np.searchsorted(self.dicts[c], vals)
-        self.cols[c] = np.concatenate([self.cols[c], codes])
+            pos = np.searchsorted(self.dicts[c], uniq)
+        lut = pos.astype(np.int32)
+        if len(lut):
+            codes = np.where(codes >= 0, lut[np.maximum(codes, 0)], NIL_CODE)
+        self._extend(c, codes.astype(np.int32, copy=False), False)
 
     def delete_oids(self, oids: np.ndarray) -> None:
         self.deleted[oids] = True
@@ -219,7 +278,7 @@ class TableData:
         t = self.types[c]
         if t.kind == Kind.STR:
             vals = np.asarray(vals, dtype=object)
-            isnil = np.array([v is None for v in vals], dtype=bool)
+            isnil = str_nilmask(vals)
             nn = vals[~isnil].astype(str) if (~isnil).any() else \
                 np.empty(0, dtype=str)
             merged = np.unique(np.concatenate([self.dicts[c], nn]))
@@ -236,6 +295,32 @@ class TableData:
         else:
             self.cols[c][oids] = vals.astype(t.np_dtype, copy=False)
         self.version = _next_version()
+
+
+def _rows(arrays: Dict[str, np.ndarray]) -> int:
+    return len(next(iter(arrays.values())))
+
+
+#: the rows from which ``TableData._append`` works on columns in parallel
+_PARALLEL_ROWS = 1 << 16
+
+
+def _each(fn, items: List[str], parallel: bool) -> None:
+    """``fn`` on every item: in threads, one an item, if ``parallel``."""
+    if not parallel or len(items) < 2:
+        for x in items:
+            fn(x)
+        return
+    with ThreadPoolExecutor(min(len(items), os.cpu_count() or 1)) as ex:
+        list(ex.map(fn, items))
+
+
+def _checked_batch(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """An insert's batch with lower-case column names and each
+    ``Categorical`` checked, once for the constraints, the append and
+    the WAL record."""
+    return {c.lower(): a.checked() if isinstance(a, Categorical) else a
+            for c, a in arrays.items()}
 
 
 class Database:
@@ -643,14 +728,16 @@ class Database:
 
     @staticmethod
     def _wal_encode(arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """Object string arrays (with None) → '<U' values + nil-mask pairs
-        (npz can't hold object arrays without pickling)."""
+        """Object string arrays (with None) and Categoricals → '<U' values
+        + nil-mask pairs (npz can't hold object arrays without pickling);
+        a replay reads them back as strings."""
         out = {}
         for k, a in arrays.items():
-            if a.dtype == object:
-                isnil = np.array([v is None for v in a], dtype=bool)
-                out[k + "@s"] = np.array(
-                    ["" if v is None else str(v) for v in a], dtype=str)
+            if isinstance(a, Categorical):
+                out[k + "@s"], out[k + "@nil"] = a.strings()
+            elif a.dtype == object:
+                isnil = np.equal(a, None)
+                out[k + "@s"] = np.where(isnil, "", a).astype(str)
                 out[k + "@nil"] = isnil
             else:
                 out[k] = a
@@ -662,10 +749,8 @@ class Database:
         for k, a in arrays.items():
             if k.endswith("@s"):
                 base = k[:-2]
-                nil = arrays[base + "@nil"]
-                obj = np.empty(len(a), dtype=object)
-                for i, (v, isnil) in enumerate(zip(a, nil)):
-                    obj[i] = None if isnil else str(v)
+                obj = a.astype(object)
+                obj[arrays[base + "@nil"]] = None
                 out[base] = obj
             elif not k.endswith("@nil"):
                 out[k] = a
@@ -673,12 +758,14 @@ class Database:
 
     def _log(self, rtype: int, meta: dict,
              arrays: Optional[Dict[str, np.ndarray]] = None) -> None:
-        arrays = self._wal_encode(arrays or {})
-        if self.wal is not None:
-            txn = self._next_txn
-            self._next_txn += 1
-            self.wal.append(rtype, txn, meta, arrays, flush=False)
-            self.wal.commit(txn)
+        """Write one committed record to the WAL (nothing without one)."""
+        if self.wal is None:
+            return
+        txn = self._next_txn
+        self._next_txn += 1
+        self.wal.append(rtype, txn, meta, self._wal_encode(arrays or {}),
+                        flush=False)
+        self.wal.commit(txn)
 
     # ======================================================================
     # DDL / DML (physical domain)
@@ -1594,10 +1681,10 @@ class Database:
                 continue
             a = arrays[c]
             if t.kind == _K.STR:
-                vals = np.asarray(["" if v is None else str(v)
-                                   for v in a], object)
+                nil = str_nilmask(a)
+                vals = np.where(nil, "", a).astype(str)
                 col = Column.from_strings(vals, t, device=self.device)
-                nilpos = np.nonzero([v is None for v in a])[0]
+                nilpos = np.nonzero(nil)[0]
                 if len(nilpos):
                     codes = col.data[: col.count].cpu().numpy().copy()
                     codes[nilpos] = -1
@@ -1625,7 +1712,7 @@ class Database:
         def nilmask(c: str) -> np.ndarray:
             a = arrays[c]
             if td.types[c].kind == Kind.STR:
-                return np.array([v is None for v in a], dtype=bool)
+                return str_nilmask(a)
             if td.types[c].np_dtype.kind == "b":
                 # bool columns are nonil in practice (False is a value,
                 # not the sentinel)
@@ -1651,6 +1738,12 @@ class Database:
                     raise ValueError(
                         f"22003!value exceeds decimal({t.precision},"
                         f"{t.scale}) range for {td.name}.{c}")
+        if td.pks or td.uniques or getattr(td, "unique_sets", ()) or \
+                getattr(td, "checks", ()) or self.fks.get(td.name) or \
+                (extra_fks or {}).get(td.name):
+            # the checks below compare values: a Categorical as its strings
+            arrays = {c: a.decode() if isinstance(a, Categorical) else a
+                      for c, a in arrays.items()}
         self._fk_check_insert(td, arrays, resolver, extra_fks)
         for uset in getattr(td, "unique_sets", ()):
             if not all(c in arrays for c in uset):
@@ -1884,12 +1977,15 @@ class Database:
         if self._txn is not None:
             return self._txn.insert(name, arrays)
         td = self._mutable_td(name)
-        arrays = {c.lower(): v for c, v in arrays.items()}
-        self._check_constraints(td, arrays)
-        td.append(arrays)
-        self._log(REC_INSERT, {"table": name}, arrays)
+        arrays = _checked_batch(arrays)
+        n = _rows(arrays)
+        with PROFILER.span("load.append", "append_ns",
+                           count=("append_rows", n)):
+            self._check_constraints(td, arrays)
+            td._append(arrays)
+            self._log(REC_INSERT, {"table": name}, arrays)
         self._device.pop(name, None)
-        return len(next(iter(arrays.values())))
+        return n
 
     def delete(self, name: str, oids: np.ndarray) -> int:
         name = name.lower()
@@ -1916,35 +2012,43 @@ class Database:
     # ======================================================================
     # device materialization (the sql.bind/tid delta read path)
     # ======================================================================
-    def table(self, name: str) -> Tuple[Table, np.ndarray]:
+    def table(self, name: str) -> Tuple[Table, Optional[np.ndarray]]:
         """Device Table of visible rows + vis_oids (device row → storage oid
-        mapping, the tid candidate list)."""
+        mapping, the tid candidate list; None while no row is deleted,
+        when device row = storage oid)."""
         name = name.lower()
         if self._txn is not None:
             return self._txn.table(name)
         return self._materialize(name, self.tables[name], self._device)
 
     def _materialize(self, name: str, td: TableData, cache: dict) \
-            -> Tuple[Table, np.ndarray]:
+            -> Tuple[Table, Optional[np.ndarray]]:
         """Upload the visible rows of ``td`` to the store's device, once
-        per table version (``cache``: name → (version, Table, vis_oids))."""
+        per table version (``cache``: name → (version, Table, vis_oids)):
+        each column's live values as they are (no copy through the
+        visibility mask while nothing is deleted), padded and scanned for
+        its flags on the device; the hidden ``__rowid__`` is made there
+        only when a statement reads it."""
         cached = cache.get(name)
         if cached is not None and cached[0] == td.version:
             return cached[1], cached[2]
-        vis = ~td.deleted
-        vis_oids = np.nonzero(vis)[0].astype(np.int64)
-        cols = {}
-        for c in td.order:
-            t = td.types[c]
-            arr = td.cols[c][vis]
-            cols[c] = make_device_column(
-                arr, t, td.dicts.get(c) if t.kind == Kind.STR else None,
-                device=self.device)
-        # hidden rowid (the tid candidate): device row → storage oid
-        from ..dtypes import I64 as _I64
-        cols["__rowid__"] = make_device_column(vis_oids, _I64,
-                                               device=self.device)
-        tbl = Table.from_dict(name, cols)
+        with PROFILER.span("load.upload", "upload_ns") as sp:
+            vis_oids = np.nonzero(~td.deleted)[0] if td.deleted.any() \
+                else None
+            cols = {}
+            nbytes = 0
+            for c in td.order:
+                t = td.types[c]
+                arr = td.cols[c] if vis_oids is None else td.cols[c][vis_oids]
+                nbytes += arr.nbytes
+                cols[c] = make_device_column(
+                    arr, t, td.dicts.get(c) if t.kind == Kind.STR else None,
+                    device=self.device, code_flags=True,
+                    clock="upload_copy_ns")
+            count = td.count if vis_oids is None else len(vis_oids)
+            cols["__rowid__"] = RowidColumn(count, self.device, vis_oids)
+            tbl = Table.from_dict(name, cols)
+            sp.add_count("upload_bytes", nbytes)
         cache[name] = (td.version, tbl, vis_oids)
         return tbl, vis_oids
 
@@ -2098,10 +2202,21 @@ class Transaction:
             self.writes[name] = td
         return td
 
+    def _wal_arrays(self, arrays: Dict[str, np.ndarray]) \
+            -> Dict[str, np.ndarray]:
+        """A buffered record's arrays, encoded for the WAL now and in
+        memory of their own (the caller may refill its buffers before
+        COMMIT); none for a store without a WAL, which never writes
+        them."""
+        if self.db.wal is None:
+            return {}
+        return {k: np.array(a) for k, a in
+                Database._wal_encode(arrays).items()}
+
     # -- DML -----------------------------------------------------------------
     def insert(self, name: str, arrays: Dict[str, np.ndarray]) -> int:
         name = name.lower()
-        arrays = {c.lower(): v for c, v in arrays.items()}
+        arrays = _checked_batch(arrays)
         td = self._writable(name)
 
         def _parent(n):
@@ -2109,13 +2224,16 @@ class Transaction:
                 return self.tabledata(n)
             except KeyError:
                 return None
-        self.db._check_constraints(td, arrays, resolver=_parent,
-                                   extra_fks=self.fks_add)
-        td.append(arrays)
+        n = _rows(arrays)
+        with PROFILER.span("load.append", "append_ns",
+                           count=("append_rows", n)):
+            self.db._check_constraints(td, arrays, resolver=_parent,
+                                       extra_fks=self.fks_add)
+            td._append(arrays)
+            self.recs.append((REC_INSERT, {"table": name},
+                              self._wal_arrays(arrays)))
         self._device.pop(name, None)
-        self.recs.append((REC_INSERT, {"table": name},
-                          Database._wal_encode(arrays)))
-        return len(next(iter(arrays.values())))
+        return n
 
     def delete(self, name: str, oids: np.ndarray) -> int:
         name = name.lower()
@@ -2134,14 +2252,14 @@ class Transaction:
             self._writable(child).delete_oids(coids)
             self._device.pop(child, None)
             self.recs.append((REC_DELETE, {"table": child},
-                              Database._wal_encode({"oids": coids})))
+                              self._wal_arrays({"oids": coids})))
 
         def _updater(child, col, coids, vals):
             self._writable(child).update_col(col, coids, vals)
             self._device.pop(child, None)
             self.recs.append((REC_UPDATE, {"table": child, "col": col},
-                              Database._wal_encode(
-                                  {"oids": coids, "vals": vals})))
+                              self._wal_arrays({"oids": coids,
+                                                "vals": vals})))
         self.db._fk_check_delete(self.tabledata(name),
                                  np.asarray(oids, np.int64),
                                  resolver=_resolve, deleter=_deleter,
@@ -2150,8 +2268,7 @@ class Transaction:
         self._writable(name).delete_oids(oids)
         self._device.pop(name, None)
         self.recs.append((REC_DELETE, {"table": name},
-                          Database._wal_encode(
-                              {"oids": oids.astype(np.int64)})))
+                          self._wal_arrays({"oids": oids.astype(np.int64)})))
         return len(oids)
 
     def update(self, name: str, col: str, oids: np.ndarray,
@@ -2160,9 +2277,8 @@ class Transaction:
         self._writable(name).update_col(col.lower(), oids, vals)
         self._device.pop(name, None)
         self.recs.append((REC_UPDATE, {"table": name, "col": col.lower()},
-                          Database._wal_encode(
-                              {"oids": oids.astype(np.int64),
-                               "vals": vals})))
+                          self._wal_arrays({"oids": oids.astype(np.int64),
+                                            "vals": vals})))
         return len(oids)
 
     # -- transactional DDL (create/drop table inside START TRANSACTION) ------

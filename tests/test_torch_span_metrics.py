@@ -3,7 +3,10 @@
 cell run through the Session on the CPU, with a stub device trace: each
 reads its counters' window delta over the window's queries, and nothing
 without a device trace or without its counter; and the counters of host
-time add up to the window's latencies."""
+time add up to the window's latencies.  The readers of the load's
+counters (``append_s``, ``upload_s``, ``upload_link_share``) read what
+the entry's open and the first pass charged, as ``Run.setup_counters``
+holds it at the end of set-up."""
 
 import os
 
@@ -33,6 +36,9 @@ READERS = {
 #: reader -> the counters whose window deltas it divides
 RATIOS = {"dict_device_share.session": ("dict_device_values",
                                         "dict_values")}
+#: reader of the load's counters -> the counters it sums and the scale
+SETUP = {"append_s": (("append_ns", "load_dict_ns"), 1e-9),
+         "upload_s": (("upload_ns",), 1e-9)}
 NS = ("sql_ns", "parse_ns", "bind_ns", "lower_ns", "dict_ns",
       "subquery_ns", "dispatch_ns", "wait_ns", "fetch_ns", "decode_ns",
       "executor_ns")
@@ -63,6 +69,35 @@ def window():
     return cell, answers, counters
 
 
+@pytest.fixture(scope="module")
+def loaded():
+    """What the tiny cell's open and one pass of its queries charged to
+    the counters (the set-up's share of them)."""
+    cell = tiny.cell("tpch-sf1.power")
+    cfg = cell.cfg
+    data = harness.load_module("gen", cfg["generator"]).generate(
+        cfg, SEED, "cpu")
+    before = harness._counters()
+    entry = harness.load_module("entries", cfg["entry"]).open_entry(
+        cfg, data, "cpu")
+    try:
+        for q in cell.qids:
+            harness._ask(entry, q, cell.texts[q], None, False)
+    finally:
+        entry.close()
+    after = harness._counters()
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _setup_run(window, loaded, trace=True, drop=()):
+    cell, answers, counters = window
+    stub = tracing.DeviceTrace(1.0, 0.5, 1, [], []) if trace else None
+    setup = {k: v for k, v in loaded.items()
+             if k.split(".", 1)[1] not in drop}
+    return harness.Run(cell, answers, 1.0, stub, counters, {}, "cpu",
+                       setup_counters=setup)
+
+
 def _run(window, trace=True, drop=()):
     cell, answers, counters = window
     stub = tracing.DeviceTrace(1.0, 0.5, 1, [], []) if trace else None
@@ -73,10 +108,12 @@ def _run(window, trace=True, drop=()):
 
 def test_every_reader_is_in_the_benchmark():
     per_layer = {m["name"]: m for m in tiny.bench()["per_layer"]}
-    for name in (*READERS, *RATIOS):
+    load = (*SETUP, "upload_link_share")
+    for name in (*READERS, *RATIOS, *load):
         assert per_layer[name]["source"] == "program_counter"
     assert {n for n, m in per_layer.items()
-            if m["source"] == "program_counter"} == {*READERS, *RATIOS}
+            if m["source"] == "program_counter"} == \
+        {*READERS, *RATIOS, *load}
 
 
 @pytest.mark.parametrize("name", sorted(RATIOS))
@@ -114,3 +151,29 @@ def test_counters_add_up_to_the_latencies(window):
     for k in ("lower_ns", "dict_ns", "subquery_ns", "dispatch_ns",
               "wait_ns", "fetch_ns", "decode_ns", "host_reads"):
         assert counters[f"fragment.{k}"] > 0, k
+
+
+@pytest.mark.parametrize("name", sorted(SETUP))
+def test_setup_reader_reads_the_load_counters(window, loaded, name):
+    keys, scale = SETUP[name]
+    read = harness.load_module("metrics", name).read
+    want = sum(loaded[f"fragment.{k}"] for k in keys) * scale
+    assert want > 0
+    assert read(_setup_run(window, loaded)) == pytest.approx(want,
+                                                             rel=1e-12)
+    assert read(_setup_run(window, loaded, trace=False)) is None
+    assert read(_setup_run(window, loaded, drop=keys[:1])) is None
+    assert read(_run(window)) is None       # no set-up counters at all
+
+
+def test_upload_link_share_divides_bytes_by_copy_time(window, loaded):
+    read = harness.load_module("metrics", "upload_link_share").read
+    nbytes = loaded["fragment.upload_bytes"]
+    ns = loaded["fragment.upload_copy_ns"]
+    assert nbytes > 0 and 0 < ns < loaded["fragment.upload_ns"]
+    assert loaded["fragment.append_rows"] > 0
+    assert read(_setup_run(window, loaded)) == pytest.approx(
+        100 * nbytes / (ns / 1e9) / 63.0e9, rel=1e-12)
+    assert read(_setup_run(window, loaded, trace=False)) is None
+    for key in ("upload_bytes", "upload_copy_ns"):
+        assert read(_setup_run(window, loaded, drop=(key,))) is None
