@@ -22,6 +22,15 @@ Phases, one or more output lines each, and a line with each phase's time:
              domain 8, inputs in the reference micro-benchmark's ranges
              with ``code == -1`` rows and a cutoff / mask that excludes
              rows.
+   kernel join_probe - join_probe at the shape of SSB SF20's widest
+             star-join probe (lineorder against part): 2^27 probe slots,
+             an int32 key over part's 1,000,000 keys, a mask with ~40 %
+             live rows, part's slot table (a third of it without a build
+             row) and one carried int32 column, against join_probe_plain
+             bit for bit; median CUDA-event times of the kernel, the plain
+             chain and one library call (``torch.index_select`` of the
+             slot table by the prepared keys), the bound (bytes read and
+             written once over 3.35 TB/s) and the launches.
 4. load    - TPC-H SF1 generated and loaded onto the card (``load_tpch``);
              the numpy oracle (monetdb_tpu_torch/bench/tpch_oracle.py)
              computes every query's expected rows from the same data.
@@ -546,6 +555,62 @@ def phase_kernel_fused(dev):
              f"{plain_ms:.4f} ms, library index_add_ [n, 2] {lib_ms:.4f} "
              f"ms, bound {gsl['bound_ms']:.4f} ms ({gsl['bound_by']})")
     return q1, gsl
+
+
+#: join_probe's phase: SSB SF20's lineorder capacity and a row count of
+#: that size, part's keys at SF20 (200,000 x floor(1 + log2 20)), the live
+#: share of a filtered fact table
+JOIN_PROBE_ROWS = 1 << 27
+JOIN_PROBE_COUNT = 119_994_746
+JOIN_PROBE_BUILD = 1_000_000
+JOIN_PROBE_LIVE = 0.4
+
+
+def phase_kernel_join_probe(dev) -> dict:
+    """join_probe vs join_probe_plain on the card at flights' shape; returns
+    its JSON entry."""
+    g = torch.Generator(device=dev).manual_seed(2718)
+    n, rcap = JOIN_PROBE_ROWS, JOIN_PROBE_BUILD
+    entry = {"name": "join_probe", "route": "cuda",
+             "source": "monetdb_tpu_torch/csrc/join_probe.cu",
+             "replaces": "none (exec/fragment.py _Interp.r_join, dense)"}
+    key = torch.randint(1, rcap + 1, (n,), generator=g, device=dev,
+                        dtype=torch.int32)                  # lo_partkey
+    mask = torch.rand(n, generator=g, device=dev) < JOIN_PROBE_LIVE
+    count = torch.tensor(JOIN_PROBE_COUNT, device=dev)
+    slots = torch.randperm(rcap, generator=g, device=dev).to(torch.int32)
+    slots[torch.rand(rcap, generator=g, device=dev) < 1 / 3] = rcap
+    col = torch.randint(0, 1000, (rcap,), generator=g, device=dev,
+                        dtype=torch.int32)                  # p_brand1
+    args = ([key], [(False, 1, rcap, False)], slots, rcap, count, mask,
+            [col])
+    _zero_launches()
+    got = CK.join_probe(*args, cap=n, want="semi")
+    want = CK.join_probe_plain(*args, cap=n, want="semi")
+    torch.cuda.synchronize()
+    launches = CK.LAUNCHES["join_probe"]
+    if launches != 1:
+        raise AssertionError(f"join_probe launches {CK.LAUNCHES}")
+    equal_or_raise("join_probe", [got[0].to(torch.int8), got[1][0]],
+                   [want[0].to(torch.int8), want[1][0]], f"n={n}")
+    live = int(got[0].sum())
+    del want
+    ms = time_cuda(lambda: CK.join_probe(*args, cap=n, want="semi"))
+    plain_ms = time_cuda(lambda: CK.join_probe_plain(
+        *args, cap=n, want="semi"), reps=5, warmup=1)
+    idx = key - 1
+    lib_ms = time_cuda(lambda: torch.index_select(slots, 0, idx))
+    # bytes: key and mask read once, the mask and the column written once,
+    # the slot table and the build column read once
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 launches=launches, max_abs_err=0,
+                 **bound(n * (4 + 1 + 1 + 4) + rcap * 8, 0))
+    _log(f"kernel: join_probe n={n} rcap={rcap} equal ({live} rows "
+         f"matched); kernel {ms:.4f} ms ({n * 10 / (ms * 1e-3) / 1e9:.0f} "
+         f"GB/s), plain {plain_ms:.4f} ms, library index_select "
+         f"{lib_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+         f"({entry['bound_by']}); launches {launches} a call")
+    return entry
 
 
 def phase_load(dev):
@@ -1825,7 +1890,8 @@ PROCS_WARM = 2
 #: sharded_q1 (one a measure, 5) launch seg_sum64, the int32 sharded_q1
 #: launches q1_grouped_sums once; no other kernel runs there
 PROCS_LAUNCHES = {"seg_sum64": 6, "q1_grouped_sums": 1,
-                  "grouped_sum_limbs": 0, "like_match": 0, "substr_keys": 0}
+                  "grouped_sum_limbs": 0, "like_match": 0, "substr_keys": 0,
+                  "join_probe": 0}
 
 
 def phase_procs(dev, seg: dict, q1: dict, gsl: dict) -> None:
@@ -2922,6 +2988,8 @@ def main(argv) -> int:
     seg = _timed("kernel seg_sum64", phase_kernel_seg_sum64, dev)
     q1, gsl = _timed("kernel fused", phase_kernel_fused, dev)
     torch.cuda.empty_cache()
+    probe = _timed("kernel join_probe", phase_kernel_join_probe, dev)
+    torch.cuda.empty_cache()
     cat, resident, want, data = _timed("load", phase_load, dev)
     dicts = _timed("kernel dict", phase_kernel_dict, dev, cat)
     _timed("fused", phase_fused, cat, want[1], q1, gsl)
@@ -2960,7 +3028,7 @@ def main(argv) -> int:
     _timed("external", phase_external, dev)
     _log(f"chip_smoke: all phases passed in "
          f"{time.perf_counter() - t_start:.1f} s")
-    _log(json.dumps({"kernels": [seg, q1, gsl] + dicts}))
+    _log(json.dumps({"kernels": [seg, q1, gsl, probe] + dicts}))
     _log(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -66,12 +66,13 @@ from .. import config
 from ..column import StrDict, capacity_for
 from ..dtypes import (BOOL, DATE, F64, I8, I32, I64, TIMESTAMP, Kind,
                       SQLType, decimal as dec_t, varchar)
-from ..ops._tensor import (catalog_device, idiv as _idiv, irem as _irem,
+from ..ops._tensor import (catalog_device, gather_nil as _gather_nil,
+                           idiv as _idiv, irem as _irem,
                            lexsort as _lexsort, nil_const as _nil_const,
                            nilm as _nilm_arr, npdt as _npdt,
                            set_drop as _set_drop, tdt as _tdt)
 from ..obs.profiler import PROFILER
-from ..ops.cuda_kernels import seg_sum64
+from ..ops.cuda_kernels import join_probe, seg_sum64
 from ..ops.dictmap import like_mask, substr_remap
 from ..ops.sort import sort_key
 from ..ops.strfuncs import like_lut
@@ -1666,6 +1667,8 @@ Lowering._val_or_scalar = _val_or_scalar_w
 # ---------------------------------------------------------------------------
 
 _I64_MIN_PY = int(_I64_MIN)
+#: expression nodes whose value does not depend on the rows' liveness
+_LIVE_FREE = frozenset(("env", "in", "lit", "nil"))
 
 
 def _bcast(v, cap: int):
@@ -1677,13 +1680,6 @@ def _nil64_to_i32(out):
     """An int64 extract result as int32, nil to nil."""
     return torch.where(out == _I64_MIN_PY, _nil_const(torch.int32),
                        out).to(torch.int32)
-
-
-def _gather_nil(arr, oids, live_out):
-    """arr[oids] with dead slots (live_out False or oid<0) -> nil."""
-    ok = live_out & (oids >= 0)
-    safe = torch.where(ok, oids, 0).long()
-    return torch.where(ok, arr[safe], _nil_const(arr.dtype))
 
 
 def _group_key(arr):
@@ -2044,55 +2040,92 @@ class _Interp:
                 comb = k
         return comb, valid
 
-    def _join_sides(self, lir, rir, keyspecs, bfilter):
-        """Both inputs of a join, the probe side's liveness, and each
-        side's packed key codes with their validity (the build side's
-        after its prefilter)."""
+    def _join_build(self, lir, rir, keyspecs, bfilter):
+        """Both inputs of a join, and the build side's packed key codes
+        with their validity (after its prefilter)."""
         lenv, lcount, lmask, lcap = self.rel(lir)
         renv, rcount, rmask, rcap = self.rel(rir)
-        llive = self.live_of(lcap, lcount, lmask)
         rlive = self.live_of(rcap, rcount, rmask)
         if bfilter is not None:
             rlive = rlive & _bcast(self.pv(bfilter, renv, rlive), rcap)
-        code_l, lvalid = self._join_codes(keyspecs, lenv, llive, lcap, "l")
         code_r, rvalid = self._join_codes(keyspecs, renv, rlive, rcap, "r")
-        return (lenv, lcount, lmask, lcap, llive, code_l, lvalid,
-                renv, rcap, code_r, rvalid)
+        return (lenv, lcount, lmask, lcap), (renv, rcap, code_r, rvalid)
+
+    def _join_sides(self, lir, rir, keyspecs, bfilter):
+        """``_join_build``, and the probe side's liveness and packed key
+        codes with their validity."""
+        (lenv, lcount, lmask, lcap), build = self._join_build(
+            lir, rir, keyspecs, bfilter)
+        llive = self.live_of(lcap, lcount, lmask)
+        code_l, lvalid = self._join_codes(keyspecs, lenv, llive, lcap, "l")
+        return (lenv, lcount, lmask, lcap, llive, code_l, lvalid) + build
+
+    def _dense_slots(self, rcap, code_r, rvalid, domain, uniq_check,
+                     ordinal):
+        """Direct-address build (fetchjoin/hashjoin analog): each of the
+        ``domain`` slots holds the lowest valid build row of its code, or
+        rcap; invalid build rows go to the spare slot ``domain``, which is
+        cut off."""
+        dev = self.device
+        rid = torch.arange(rcap, dtype=torch.int32, device=dev)
+        safe_r = torch.where(rvalid, code_r, domain)
+        tmin = torch.full((domain + 1,), rcap, dtype=torch.int32,
+                          device=dev)
+        tmin.scatter_reduce_(0, safe_r, rid, reduce="amin")
+        tmin = tmin[:domain]
+        if uniq_check:
+            tmax = torch.full((domain + 1,), -1, dtype=torch.int32,
+                              device=dev)
+            tmax.scatter_reduce_(0, safe_r, rid, reduce="amax")
+            dup = (tmin < rcap) & (tmax[:domain] != tmin)
+            self.flag_rows(dup, _ERR_DUP_BASE + ordinal)
+        return tmin
 
     def r_join(self, ir):
         """Equi-join against a build side that matches each probe row at
         most once.  Of duplicate build keys the lowest build row wins in
         both strategies (scatter-min of row ids; stable sort + leftmost
         binary search), so semi and anti joins, which tolerate duplicates,
-        see the reference's rows."""
+        see the reference's rows.  The dense strategy probes through
+        ``join_probe`` (the CUDA kernel on a card, its plain version on the
+        CPU)."""
         (_, kind, lir, rir, keyspecs, strat, domain, uniq_check,
          bfilter, extra, rkeys, ordinal) = ir
-        (lenv, lcount, lmask, lcap, llive, code_l, lvalid,
-         renv, rcap, code_r, rvalid) = self._join_sides(
-            lir, rir, keyspecs, bfilter)
-        dev = self.device
+        (lenv, lcount, lmask, lcap), (renv, rcap, code_r, rvalid) = \
+            self._join_build(lir, rir, keyspecs, bfilter)
+        # the probe's mask: the output's own, or the bare match for the
+        # residual to decide
+        want = ("matched" if extra is not None else "anti" if kind == "anti"
+                else None if kind == "left" else "semi")
+        carried = () if kind in ("semi", "anti") and extra is None else rkeys
+        cols = [_bcast(renv[k], rcap).contiguous() for k in carried]
 
         if strat == "dense":
-            # direct-address build (fetchjoin/hashjoin analog): invalid
-            # build rows go to the spare slot `domain`, which is cut off
-            rid = torch.arange(rcap, dtype=torch.int32, device=dev)
-            safe_r = torch.where(rvalid, code_r, domain)
-            tmin = torch.full((domain + 1,), rcap, dtype=torch.int32,
-                              device=dev)
-            tmin.scatter_reduce_(0, safe_r, rid, reduce="amin")
-            tmin = tmin[:domain]
-            if uniq_check:
-                tmax = torch.full((domain + 1,), -1, dtype=torch.int32,
-                                  device=dev)
-                tmax.scatter_reduce_(0, safe_r, rid, reduce="amax")
-                dup = (tmin < rcap) & (tmax[:domain] != tmin)
-                self.flag_rows(dup, _ERR_DUP_BASE + ordinal)
-            hit = tmin[torch.where(lvalid, code_l, 0)]
-            matched = lvalid & (hit < rcap)
-            rowid = torch.where(matched, hit, -1).long()
+            tmin = self._dense_slots(rcap, code_r, rvalid, domain,
+                                     uniq_check, ordinal)
+            # the probe computes its own liveness; key expressions other
+            # than leaves, and a residual, read the torch one
+            llive = None
+            if extra is not None or any(spec[0][0] not in _LIVE_FREE
+                                        for spec in keyspecs):
+                llive = self.live_of(lcap, lcount, lmask)
+            keys = [_bcast(self.ev(a_ir, lenv, llive), lcap).contiguous()
+                    for a_ir, *_ in keyspecs]
+            specs = [(anil, lo, span, is_str)
+                     for _a, anil, _b, _bn, lo, span, is_str in keyspecs]
+            stats_inc("join_probes")
+            out, got = join_probe(
+                keys, specs, tmin, rcap, lcount,
+                None if lmask is None else lmask.contiguous(), cols,
+                cap=lcap, want=want)
+            if tmin.is_cuda:
+                stats_inc("join_probe_kernel")
         else:
             # sort + binary-search probe (mergejoin analog); invalid rows
             # carry the sentinel and sort last
+            llive = self.live_of(lcap, lcount, lmask)
+            code_l, lvalid = self._join_codes(keyspecs, lenv, llive, lcap,
+                                              "l")
             sent = torch.iinfo(torch.int64).max
             kr = torch.where(rvalid, code_r, sent)
             ks, rs = torch.sort(kr, stable=True)
@@ -2104,30 +2137,30 @@ class _Interp:
                 0, rcap - 1)
             matched = lvalid & (ks[pos] == kl) & (kl != sent)
             rowid = torch.where(matched, rs[pos], -1)
-
-        def masked(m):
-            return m if lmask is None else (lmask & m)
-
-        if kind in ("semi", "anti") and extra is None:
-            return lenv, lcount, masked(matched if kind == "semi"
-                                        else ~matched), lcap
+            ok = rowid >= 0
+            got = [_gather_nil(c, rowid, ok) for c in cols]
+            out = (None if want is None else matched if want == "matched"
+                   else self._masked(lmask, matched if want == "semi"
+                                     else ~matched))
 
         menv = dict(lenv)
-        ok = rowid >= 0
-        for k in rkeys:
-            menv[k] = _gather_nil(renv[k], rowid, ok)
-        if extra is not None:
-            matched = matched & _bcast(self.pv(extra, menv, llive), lcap)
-            if kind in ("semi", "anti"):
-                return lenv, lcount, masked(matched if kind == "semi"
-                                            else ~matched), lcap
-            if kind != "inner":
-                for k in rkeys:
-                    a = menv[k]
-                    menv[k] = torch.where(matched, a, _nil_const(a.dtype))
+        menv.update(zip(carried, got))
+        if extra is None:
+            return menv, lcount, lmask if want is None else out, lcap
+        matched = out & _bcast(self.pv(extra, menv, llive), lcap)
+        if kind in ("semi", "anti"):
+            return lenv, lcount, self._masked(
+                lmask, matched if kind == "semi" else ~matched), lcap
         if kind == "inner":
-            return menv, lcount, masked(matched), lcap
+            return menv, lcount, self._masked(lmask, matched), lcap
+        for k in carried:
+            a = menv[k]
+            menv[k] = torch.where(matched, a, _nil_const(a.dtype))
         return menv, lcount, lmask, lcap     # left outer
+
+    @staticmethod
+    def _masked(mask, m):
+        return m if mask is None else (mask & m)
 
     def r_join_expand(self, ir):
         """N:M join by match enumeration (gdk/gdk_join.c:2900 hashjoin with
@@ -3365,7 +3398,10 @@ STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
          # bytes it copied to the device and those copies' own time
          # (CUDA events on a card)
          "append_ns": 0, "append_rows": 0, "load_dict_ns": 0,
-         "upload_ns": 0, "upload_bytes": 0, "upload_copy_ns": 0}
+         "upload_ns": 0, "upload_bytes": 0, "upload_copy_ns": 0,
+         # dense join probes run (_Interp.r_join), and those of them that
+         # went through the join_probe CUDA kernel
+         "join_probes": 0, "join_probe_kernel": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:

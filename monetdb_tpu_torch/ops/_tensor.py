@@ -9,8 +9,8 @@ from typing import List
 import numpy as np
 import torch
 
-__all__ = ["tdt", "npdt", "nil_const", "nilm", "set_drop", "idiv", "irem",
-           "lexsort", "iota", "as_scalar", "catalog_device"]
+__all__ = ["tdt", "npdt", "nil_const", "nilm", "gather_nil", "set_drop",
+           "idiv", "irem", "lexsort", "iota", "as_scalar", "catalog_device"]
 
 _NP2TORCH = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
              np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
@@ -46,6 +46,13 @@ def nilm(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bool:
         return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     return x == torch.iinfo(x.dtype).min
+
+
+def gather_nil(arr, oids, live_out):
+    """arr[oids] with dead slots (live_out False or oid<0) -> nil."""
+    ok = live_out & (oids >= 0)
+    safe = torch.where(ok, oids, 0).long()
+    return torch.where(ok, arr[safe], nil_const(arr.dtype))
 
 
 def catalog_device(catalog, error=ValueError) -> torch.device:

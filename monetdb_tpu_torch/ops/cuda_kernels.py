@@ -15,7 +15,7 @@ few atomics per block); the sources under csrc/ say what each design does
 about that.  The TPU kernels split values into 16-bit limbs because Mosaic
 has no 64-bit integers; Hopper has, so these add whole 64-bit values.
 
-Two more replace no TPU kernel: they compute the lowering's maps over a
+Three more replace no TPU kernel.  Two compute the lowering's maps over a
 string dictionary on the card (ops/dictmap.py), over its UTF-8 byte heap
 (column.StrHeap: ``data`` uint8, ``offsets`` int32):
 
@@ -23,6 +23,13 @@ string dictionary on the card (ops/dictmap.py), over its UTF-8 byte heap
   (strfuncs.like_program);
 * ``substr_keys`` - each value's substring / left / right as a sortable
   64-bit key of its bytes.
+
+The third is the probe side of the fragment interpreter's dense equi-join
+(exec/fragment.py ``_Interp.r_join``), which XLA fuses for the reference:
+
+* ``join_probe`` - liveness, key checks, the packed key's slot lookup, the
+  output mask and the carried build columns in one pass over the probe
+  rows.
 
 Each kernel has:
   * a wrapper that launches it for CUDA tensors, after checking dtype,
@@ -53,12 +60,15 @@ import threading
 import numpy as np
 import torch
 
+from ._tensor import gather_nil, nil_const, nilm, npdt
+
 __all__ = ["seg_sum64", "seg_sum64_plain", "q1_grouped_sums",
            "q1_grouped_sums_plain", "grouped_sum_limbs",
            "grouped_sum_limbs_plain", "like_match", "like_match_plain",
-           "substr_keys", "substr_keys_plain", "build", "LAUNCHES",
-           "MAX_DOMAIN", "SEG_SUM_BLOCK", "LIKE_MAX_OPS", "LIKE_ONE",
-           "LIKE_ANY"]
+           "substr_keys", "substr_keys_plain", "join_probe",
+           "join_probe_plain", "build", "LAUNCHES", "MAX_DOMAIN",
+           "SEG_SUM_BLOCK", "LIKE_MAX_OPS", "LIKE_ONE", "LIKE_ANY",
+           "JOIN_MAX_KEYS", "JOIN_MAX_COLS"]
 
 #: largest group domain the kernels take (the fragment's one-hot bound,
 #: exec/fragment.py _ONEHOT_MAX)
@@ -72,10 +82,16 @@ SEG_SUM_BLOCK = 16384
 
 #: kernel launches so far, by kernel name (see module docstring)
 LAUNCHES = {"seg_sum64": 0, "q1_grouped_sums": 0, "grouped_sum_limbs": 0,
-            "like_match": 0, "substr_keys": 0}
+            "like_match": 0, "substr_keys": 0, "join_probe": 0}
 
 #: longest LIKE program like_match takes (csrc/like_match.cu kMaxOps)
 LIKE_MAX_OPS = 1024
+
+#: keys and carried columns one join_probe launch takes
+#: (csrc/join_probe.cu kMaxKeys, kMaxCols); more keys are packed in torch
+#: first, more columns take further launches over the same rows
+JOIN_MAX_KEYS = 4
+JOIN_MAX_COLS = 8
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -98,6 +114,7 @@ _SIGNATURES = {
     "grouped_sum_limbs_launch": [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _P],
     "like_match_launch": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P],
     "substr_keys_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    "join_probe_launch": [_P, _I, _I, _P],
 }
 
 _fns = None
@@ -512,3 +529,191 @@ def substr_keys(data, offsets, *, start: int, count: int,
             data.data_ptr(), offsets.data_ptr(), n, start, count, int(right),
             keys.data_ptr(), _value_grid(dev, n), _THREADS, stream))
     return keys
+
+
+# ---------------------------------------------------------------------------
+# join_probe: the dense equi-join's probe side
+# ---------------------------------------------------------------------------
+
+#: what join_probe returns as its mask -> csrc/join_probe.cu Mode
+_PROBE_MODES = {"semi": 0, "anti": 1, "matched": 2}
+_KEY_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+#: a carried column's dtype -> its nil as the unsigned bits of its width
+#: (NaN: the quiet NaN that torch.where writes for float("nan"))
+_NIL_BITS = {dt: int(np.array(nil_const(dt), npdt(dt)).view(
+    f"u{npdt(dt).itemsize}")) for dt in _KEY_DTYPES + (
+        torch.bool, torch.float32, torch.float64)}
+
+
+class _ProbeKey(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("lo", ctypes.c_longlong),
+                ("span", ctypes.c_longlong), ("width", ctypes.c_int),
+                ("nil", ctypes.c_int)]
+
+
+class _ProbeCol(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("nil_bits", ctypes.c_ulonglong), ("width", ctypes.c_int),
+                ("unused", ctypes.c_int)]
+
+
+class _ProbeArgs(ctypes.Structure):
+    """csrc/join_probe.cu ``Args``, field for field."""
+    _fields_ = [("keys", _ProbeKey * JOIN_MAX_KEYS),
+                ("cols", _ProbeCol * JOIN_MAX_COLS),
+                ("slots", ctypes.c_void_p), ("count", ctypes.c_void_p),
+                ("mask", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("nkeys", ctypes.c_int),
+                ("ncols", ctypes.c_int), ("rcap", ctypes.c_int),
+                ("mode", ctypes.c_int)]
+
+
+def join_probe_plain(keys, specs, slots, rcap: int, count, mask, cols, *,
+                     cap: int, want):
+    """Plain join_probe: the interpreter's torch chain (live rows, each
+    key's nil and range checks, the mixed-radix pack, the slot gather and
+    ``gather_nil`` per carried column)."""
+    live = torch.arange(cap, device=slots.device) < count
+    if mask is not None:
+        live = live & mask
+    comb = None
+    valid = live
+    for k, (nil, lo, span, is_str) in zip(keys, specs):
+        k = k.expand(cap) if k.dim() == 0 else k
+        if nil and not is_str:
+            valid = valid & ~nilm(k)
+        k = k.to(torch.int64)
+        c = k - lo
+        valid = valid & (c >= 0) & (c < span)
+        comb = c if comb is None else comb * span + c
+    hit = slots[torch.where(valid, comb, 0)]
+    matched = valid & (hit < rcap)
+    rowid = torch.where(matched, hit, -1).long()
+    ok = rowid >= 0
+    out = [gather_nil(c, rowid, ok) for c in cols]
+    if want is None or want == "matched":
+        return (matched if want else None), out
+    m = matched if want == "semi" else ~matched
+    return (m if mask is None else (mask & m)), out
+
+
+def _fold_keys(keys, specs):
+    """At most JOIN_MAX_KEYS keys: the first ones packed into one int64
+    key (span: the product of theirs), -1 where any of them is invalid,
+    so that validity and the packed code stay the same."""
+    k = len(keys) - JOIN_MAX_KEYS + 1
+    if k <= 1:
+        return list(keys), list(specs)
+    comb, valid, width = None, None, 1
+    for key, (nil, lo, span, is_str) in zip(keys[:k], specs[:k]):
+        ok = ~nilm(key) if nil and not is_str else torch.ones_like(
+            key, dtype=torch.bool)
+        c = key.to(torch.int64) - lo
+        ok = ok & (c >= 0) & (c < span)
+        valid = ok if valid is None else valid & ok
+        comb = c if comb is None else comb * span + c
+        width *= span
+    return ([torch.where(valid, comb, -1)] + list(keys[k:]),
+            [(False, 0, width, False)] + list(specs[k:]))
+
+
+def _check_probe(keys, slots, count, mask, cols, cap: int, rcap: int):
+    dev = slots.device
+    if dev.type != "cuda":
+        raise ValueError(f"join_probe: slots on {dev}, not a CUDA device")
+    if slots.dtype != torch.int32 or slots.dim() != 1 or \
+            not slots.is_contiguous():
+        raise TypeError(f"join_probe: slots must be contiguous 1-D "
+                        f"torch.int32, not {slots.dtype} {tuple(slots.shape)}")
+    if not 0 <= rcap <= _I32_MAX:
+        raise ValueError(f"join_probe: rcap {rcap} outside int32")
+    named = [("count", count)] + [(f"keys[{i}]", k)
+                                  for i, k in enumerate(keys)]
+    named += [("mask", mask)] if mask is not None else []
+    named += [(f"cols[{i}]", c) for i, c in enumerate(cols)]
+    for arg, t in named:
+        if t.device != dev:
+            raise ValueError(f"join_probe: {arg} on {t.device}, slots on "
+                             f"{dev}; all must be on one CUDA device")
+        if arg == "count":
+            if t.dim() != 0 or t.dtype != torch.int64:
+                raise ValueError(f"join_probe: count must be a 0-d "
+                                 f"torch.int64, not {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            continue
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"join_probe: {arg} must be contiguous 1-D")
+        if arg.startswith("cols"):
+            if t.dtype not in _NIL_BITS:
+                raise TypeError(f"join_probe: {arg} of {t.dtype}")
+            continue
+        if t.shape[0] != cap:
+            raise ValueError(f"join_probe: {arg} has {t.shape[0]} rows, "
+                             f"not {cap}")
+        ok = (torch.bool,) if arg == "mask" else _KEY_DTYPES
+        if t.dtype not in ok:
+            raise TypeError(f"join_probe: {arg} must be "
+                            f"{' or '.join(map(str, ok))}, not {t.dtype}")
+
+
+def join_probe(keys, specs, slots, rcap: int, count, mask, cols, *,
+               cap: int, want):
+    """The probe side of a dense equi-join over ``cap`` probe rows.
+
+    ``keys``: the probe side's key columns (1-D of ``cap`` rows; a CPU
+    tensor may be 0-d), with ``specs`` one ``(nil, lo, span, is_str)`` a
+    key: a key is valid when live, not nil (``nil``: the dtype's sentinel;
+    a string code's nil is negative and fails the range) and ``0 <= key -
+    lo < span``; the valid keys pack into ``comb`` in [0, the product of
+    the spans).  ``slots`` (int32) holds the build side's row id of each
+    ``comb``, ``rcap`` where it has none.  Rows ``>= count`` (0-d int64)
+    and where ``mask`` (bool, or None) is False are dead.
+
+    Returns ``(mask, columns)``: the mask is ``mask & matched`` for
+    ``want`` "semi", ``mask & ~matched`` for "anti" (without a mask:
+    ``matched`` / ``~matched``), ``matched`` itself for "matched" and None
+    for None; ``columns[j]`` is ``cols[j][row id]`` on matched rows and
+    nil elsewhere.  On CPU tensors this is ``join_probe_plain``; on CUDA
+    tensors the kernel (csrc/join_probe.cu), which reads each key at its
+    own width."""
+    if _on_cpu(slots, *keys, *cols, *([] if mask is None else [mask])):
+        return join_probe_plain(keys, specs, slots, rcap, count, mask, cols,
+                                cap=cap, want=want)
+    if want is not None and want not in _PROBE_MODES:
+        raise ValueError(f"join_probe: want {want!r}")
+    if not keys or len(keys) != len(specs):
+        raise ValueError("join_probe: one spec a key, at least one key")
+    keys = [k.view(torch.int8) if k.dtype == torch.bool else k
+            for k in keys]
+    _check_probe(keys, slots, count, mask, cols, cap, rcap)
+    keys, specs = _fold_keys(keys, specs)
+    dev = slots.device
+    out = None if want is None else torch.empty(cap, dtype=torch.bool,
+                                                device=dev)
+    got = [torch.empty(cap, dtype=c.dtype, device=dev) for c in cols]
+    args = _ProbeArgs(slots=slots.data_ptr(), count=count.data_ptr(),
+                      mask=None if mask is None else mask.data_ptr(),
+                      n=cap, nkeys=len(keys), rcap=rcap,
+                      mode=_PROBE_MODES.get(want, 0))
+    for i, (k, (nil, lo, span, is_str)) in enumerate(zip(keys, specs)):
+        args.keys[i] = _ProbeKey(k.data_ptr(), lo, span, k.element_size(),
+                                 int(nil and not is_str))
+    fn = build()["join_probe_launch"]
+    # 8 rows a thread a step (csrc/join_probe.cu kRows)
+    blocks = max(1, min(-(-cap // (8 * _THREADS)),
+                        _sms(dev) * _BLOCKS_PER_SM))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one launch a group of JOIN_MAX_COLS columns; the first writes the mask
+    for start in range(0, max(len(cols), 1), JOIN_MAX_COLS):
+        part = list(zip(cols, got))[start:start + JOIN_MAX_COLS]
+        args.out = out.data_ptr() if out is not None and start == 0 \
+            else None
+        args.ncols = len(part)
+        for j, (src, dst) in enumerate(part):
+            args.cols[j] = _ProbeCol(src.data_ptr(), dst.data_ptr(),
+                                     _NIL_BITS[src.dtype],
+                                     src.element_size(), 0)
+        with torch.cuda.device(dev):
+            _launched("join_probe", fn(ctypes.addressof(args), blocks,
+                                       _THREADS, stream))
+    return out, got

@@ -132,6 +132,149 @@ def test_fused_kernels_reject_bad_input(cuda_device):
         CK.grouped_sum_limbs(cols[0], cols[3], mask, domain=0)
 
 
+_PROBE_KEYS = {"int8": torch.int8, "int16": torch.int16,
+               "int32": torch.int32, "int64": torch.int64,
+               "str": torch.int32, "bool": torch.bool}
+_PROBE_COLS = [torch.int8, torch.int16, torch.int32, torch.int64,
+               torch.float32, torch.float64, torch.bool, torch.int32,
+               torch.float64]
+
+
+def _probe_inputs(dev, key_kind, nkeys, ncols, masked, n, seed,
+                  rcap=1 << 20):
+    """Probe keys with nils and values on both sides of each key's range
+    (bool keys have neither), a slot table over the packed domain (a
+    quarter of it without a build row) and ``ncols`` build columns of
+    every width, NaN among the floats."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = _PROBE_KEYS[key_kind]
+    keys, specs, domain = [], [], 1
+    for j in range(nkeys):
+        if dt == torch.bool:
+            k = torch.rand(n, generator=g, device=dev) < 0.5
+            lo, span = 0, 2
+        else:
+            lo = 0 if key_kind == "str" else int(seed % 7) - 3
+            span = [100, 7, 5][j % 3] if dt != torch.int8 else 60
+            k = torch.randint(lo - 3, lo + span + 3, (n,), generator=g,
+                              device=dev, dtype=dt)
+            k[torch.rand(n, generator=g, device=dev) < 0.05] = \
+                torch.iinfo(dt).min
+        keys.append(k)
+        specs.append((j % 2 == 0, lo, span, key_kind == "str"))
+        domain *= span
+    slots = torch.randint(0, rcap, (domain,), generator=g, device=dev,
+                          dtype=torch.int32)
+    slots[torch.rand(domain, generator=g, device=dev) < 0.25] = rcap
+    count = torch.tensor(max(n - 7, 0), device=dev)
+    mask = (torch.rand(n, generator=g, device=dev) < 0.4) if masked \
+        else None
+    cols = []
+    for j in range(ncols):
+        cdt = _PROBE_COLS[j % len(_PROBE_COLS)]
+        if cdt == torch.bool:
+            c = torch.rand(rcap, generator=g, device=dev) < 0.5
+        elif cdt.is_floating_point:
+            c = torch.randn(rcap, generator=g, device=dev, dtype=cdt)
+            c[::5] = float("nan")
+        else:
+            c = torch.randint(-100, 100, (rcap,), generator=g, device=dev,
+                              dtype=cdt)
+        cols.append(c)
+    return keys, specs, slots, rcap, count, mask, cols
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.dtype == torch.bool else \
+        t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1003, (1 << 24) - 5])
+@pytest.mark.parametrize("key_kind,nkeys", [
+    ("int8", 1), ("int16", 2), ("int32", 1), ("int32", 3), ("int64", 2),
+    ("str", 1), ("bool", 1), ("int32", 5)])
+@pytest.mark.parametrize("want,ncols", [("semi", 1), ("anti", 0),
+                                        ("matched", 3), (None, 9)])
+def test_join_probe_kernel_vs_plain(cuda_device, n, key_kind, nkeys, want,
+                                    ncols):
+    """The kernel equals join_probe_plain bit for bit on every slot: the
+    mask and each carried column (NaN nils by their bits), at ragged
+    sizes, aligned and through unaligned views (the scalar path), with
+    a mask or none and rows past the count; nine columns take two
+    launches, five keys are packed to four first."""
+    seed = n + 31 * nkeys + len(key_kind) + ncols
+    keys, specs, slots, rcap, count, mask, cols = _probe_inputs(
+        cuda_device, key_kind, nkeys, ncols, seed % 2 == 0, n + 1, seed)
+    for lo in (0, 1):
+        ks = [k[lo:lo + n] for k in keys]
+        m = None if mask is None else mask[lo:lo + n]
+        before = CK.LAUNCHES["join_probe"]
+        got = CK.join_probe(ks, specs, slots, rcap, count, m, cols, cap=n,
+                            want=want)
+        ref = CK.join_probe_plain(ks, specs, slots, rcap, count, m, cols,
+                                  cap=n, want=want)
+        torch.cuda.synchronize()
+        assert CK.LAUNCHES["join_probe"] == before + max(1, -(-ncols // 8))
+        assert (got[0] is None) == (ref[0] is None)
+        if ref[0] is not None:
+            assert torch.equal(_bits(got[0]), _bits(ref[0]))
+        assert len(got[1]) == ncols
+        for g, w in zip(got[1], ref[1]):
+            assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_join_probe_kernel_rejects_bad_input(cuda_device):
+    keys, specs, slots, rcap, count, mask, cols = _probe_inputs(
+        cuda_device, "int32", 1, 2, True, 64, 3)
+
+    def probe(keys=keys, slots=slots, count=count, mask=mask, cols=cols):
+        return CK.join_probe(keys, specs, slots, rcap, count, mask, cols,
+                             cap=64, want="semi")
+    probe()
+    wide = torch.zeros(128, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        probe(keys=[wide[::2]])                 # not contiguous
+    with pytest.raises(ValueError):
+        probe(mask=torch.ones(128, dtype=torch.bool,
+                              device=cuda_device)[::2])
+    with pytest.raises(TypeError):
+        probe(keys=[keys[0].float()])           # not an integer key
+    with pytest.raises(TypeError):
+        probe(slots=slots.long())
+    with pytest.raises(TypeError):
+        probe(mask=mask.to(torch.uint8))
+    with pytest.raises(ValueError):
+        probe(keys=[keys[0].cpu()])             # another device
+    with pytest.raises(ValueError):
+        probe(cols=[cols[0], cols[1].cpu()])
+    with pytest.raises(ValueError):
+        probe(keys=[keys[0][:-1]])              # another length
+
+
+@pytest.mark.cuda
+def test_join_probe_launches_once_a_dense_probe(cuda_device):
+    """Every dense probe of the SSBM star joins goes through the kernel,
+    one launch each, and the answers equal the same catalog's on the
+    CPU."""
+    from monetdb_tpu_torch.bench.ssbm import QUERIES, load_ssbm
+    from monetdb_tpu_torch.engine import Engine
+    from monetdb_tpu_torch.exec.fragment import STATS
+    gpu = Engine(load_ssbm(60_000, device=cuda_device)[0])
+    cpu = Engine(load_ssbm(60_000, device="cpu")[0])
+    for qid, sql in QUERIES.items():
+        launches, probes = CK.LAUNCHES["join_probe"], STATS["join_probes"]
+        kernel = STATS["join_probe_kernel"]
+        got = list(gpu.query(sql).rows)
+        ran = STATS["join_probes"] - probes
+        assert ran > 0, qid
+        assert CK.LAUNCHES["join_probe"] - launches == ran, qid
+        assert STATS["join_probe_kernel"] - kernel == ran, qid
+        assert got == list(cpu.query(sql).rows), qid
+
+
 @pytest.fixture(scope="module")
 def engines_by_sf():
     """sf -> (generated data, engine on the card, engine on the CPU)."""
@@ -1209,7 +1352,7 @@ def test_hybrid_mesh_on_one_card(cuda_device):
     assert res["ranks"] == 2 and res["local"] == 2 and not res["differ"]
     assert res["launches_per_rank"] == [
         {"seg_sum64": 12, "q1_grouped_sums": 2, "grouped_sum_limbs": 0,
-         "like_match": 0, "substr_keys": 0}] * 2
+         "like_match": 0, "substr_keys": 0, "join_probe": 0}] * 2
 
 
 @pytest.mark.cuda
@@ -1251,7 +1394,8 @@ def test_bench_loops_on_gpu_match_numpy(cuda_device):
         assert int(two) == want(0) + want(1), loop.__name__
         assert launched == {"seg_sum64": 10 if loop is B.seg_loop else 0,
                             "q1_grouped_sums": 0, "grouped_sum_limbs": 0,
-                            "like_match": 0, "substr_keys": 0}
+                            "like_match": 0, "substr_keys": 0,
+                            "join_probe": 0}
     got = B.groupby_sums(*args[:2], 3, nseg)
     assert np.array_equal(got.cpu().numpy(),
                           B.groupby_numpy(sid, vals, 3, nseg))

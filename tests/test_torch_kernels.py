@@ -2,7 +2,8 @@
 seg_sum64, q1_grouped_sums, grouped_sum_limbs) against the reference Pallas
 kernels (monetdb_tpu/ops/pallas_kernels.py, run in interpret mode on the
 CPU as test_pallas_kernels.py runs them) and a numpy oracle.  Every check
-is exact equality: both sides compute exact int64 sums.
+is exact equality: both sides compute exact int64 sums.  join_probe, which
+replaces no Pallas kernel, against a row-by-row numpy oracle, bit for bit.
 
 The CPU tests exercise the plain PyTorch versions, which the wrappers take
 for CPU tensors.  The CUDA kernels themselves are held against those plain
@@ -296,3 +297,158 @@ def test_fused_kernels_cpu_take_plain_version():
     with pytest.raises(ValueError):
         CK.grouped_sum_limbs(t[0].to("meta"), t[3].to("meta"),
                              mask.to("meta"), domain=8)
+
+
+# ---------------------------------------------------------------------------
+# join_probe: the dense equi-join's probe side
+# ---------------------------------------------------------------------------
+
+_PROBE_KEY_DTYPES = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
+                     "int64": np.int64, "str": np.int32}
+_COL_DTYPES = [np.int8, np.int16, np.int32, np.int64, np.float32,
+               np.float64, np.bool_, np.int32, np.float64]
+
+
+def _probe_inputs(key_kind, nkeys, ncols, masked, seed, cap=203, rcap=37):
+    """Probe keys of one kind with nils and values on both sides of each
+    key's range, a build slot table over the keys' packed domain, and
+    ``ncols`` build columns of every width (NaN and bool among them)."""
+    rng = np.random.default_rng(seed)
+    dt = _PROBE_KEY_DTYPES[key_kind]
+    is_str = key_kind == "str"
+    keys, specs = [], []
+    domain = 1
+    for j in range(nkeys):
+        lo = 0 if is_str else int(rng.integers(-5, 6))
+        span = int(rng.integers(2, 7))
+        k = rng.integers(lo - 2, lo + span + 2, cap).astype(dt)
+        k[rng.random(cap) < 0.1] = np.iinfo(dt).min       # nils
+        keys.append(k)
+        specs.append((bool(j % 2 == 0 or is_str), lo, span, is_str))
+        domain *= span
+    slots = rng.integers(0, rcap + 1, domain).astype(np.int32)
+    slots[rng.random(domain) < 0.3] = rcap                  # no build row
+    count = int(rng.integers(cap // 2, cap + 1))
+    mask = rng.random(cap) < 0.7 if masked else None
+    cols = []
+    for j in range(ncols):
+        cdt = _COL_DTYPES[j % len(_COL_DTYPES)]
+        if cdt == np.bool_:
+            c = rng.random(rcap) < 0.5
+        elif np.issubdtype(cdt, np.floating):
+            c = rng.standard_normal(rcap).astype(cdt)
+            c[::5] = np.nan
+        else:
+            c = rng.integers(-100, 100, rcap).astype(cdt)
+        cols.append(c)
+    return keys, specs, slots, rcap, count, mask, cols
+
+
+def _probe_oracle(keys, specs, slots, rcap, count, mask, cols, want):
+    """Row by row: liveness, each key's nil and range checks, the packed
+    code's slot, the mask ``want`` asks for and the carried values."""
+    cap = len(keys[0])
+    matched = np.zeros(cap, bool)
+    rowid = np.full(cap, -1)
+    for i in range(cap):
+        ok = i < count and (mask is None or mask[i])
+        comb = 0
+        for k, (nil, lo, span, is_str) in zip(keys, specs):
+            v = int(k[i])
+            if nil and not is_str and v == np.iinfo(k.dtype).min:
+                ok = False
+            c = v - lo
+            ok = ok and 0 <= c < span
+            comb = comb * span + c
+        if ok and slots[comb] < rcap:
+            matched[i], rowid[i] = True, slots[comb]
+    out = []
+    for c in cols:
+        nil = False if c.dtype == np.bool_ else np.nan \
+            if np.issubdtype(c.dtype, np.floating) else np.iinfo(c.dtype).min
+        out.append(np.where(matched, c[np.maximum(rowid, 0)],
+                            np.array(nil, c.dtype)))
+    if want is None:
+        return None, out
+    m = {"semi": matched, "anti": ~matched, "matched": matched}[want]
+    if mask is not None and want != "matched":
+        m = m & mask
+    return m, out
+
+
+def _same_bits(got: torch.Tensor, want: np.ndarray) -> bool:
+    g = got.numpy()
+    if g.dtype != want.dtype:
+        return False
+    if g.dtype == np.bool_:
+        return np.array_equal(g, want)
+    return np.array_equal(g.view(f"u{g.itemsize}"),
+                          want.view(f"u{want.itemsize}"))
+
+
+@pytest.mark.parametrize("want", ["semi", "anti", "matched", None])
+@pytest.mark.parametrize("nkeys", [1, 2, 3])
+@pytest.mark.parametrize("key_kind", sorted(_PROBE_KEY_DTYPES))
+def test_join_probe_plain_vs_numpy(key_kind, nkeys, want):
+    """join_probe_plain (the torch chain the kernel replaces) against a row
+    by row oracle, bit for bit: inner joins ask for "semi" with columns,
+    left joins for no mask, semi / anti joins for theirs without columns,
+    a residual for the bare match; 0-9 carried columns of widths 1-8 with
+    NaN nils; a mask or none, and rows past the count."""
+    seed = 17 * nkeys + len(key_kind) + (0 if want is None else len(want))
+    ncols = seed % 10
+    keys, specs, slots, rcap, count, mask, cols = _probe_inputs(
+        key_kind, nkeys, ncols, seed % 2 == 0, seed)
+    t = torch.from_numpy
+    got_mask, got_cols = CK.join_probe_plain(
+        [t(k) for k in keys], specs, t(slots), rcap,
+        torch.tensor(count), None if mask is None else t(mask),
+        [t(c) for c in cols], cap=len(keys[0]), want=want)
+    want_mask, want_cols = _probe_oracle(keys, specs, slots, rcap, count,
+                                         mask, cols, want)
+    assert (got_mask is None) == (want_mask is None)
+    if want_mask is not None:
+        assert _same_bits(got_mask, want_mask)
+    assert len(got_cols) == ncols
+    assert all(_same_bits(g, w) for g, w in zip(got_cols, want_cols))
+
+
+@pytest.mark.parametrize("nkeys", [5, 6])
+def test_join_probe_folds_keys_past_the_kernels_limit(nkeys):
+    """Keys beyond JOIN_MAX_KEYS are packed into one int64 key first; the
+    packed keys give the plain version's answer (validity and code)."""
+    keys, specs, slots, rcap, count, mask, cols = _probe_inputs(
+        "int16", nkeys, 3, True, 40 + nkeys)
+    t = torch.from_numpy
+    keys = [t(k) for k in keys]
+    folded, fspecs = CK._fold_keys(keys, specs)
+    assert len(folded) == CK.JOIN_MAX_KEYS
+    args = (t(slots), rcap, torch.tensor(count), t(mask),
+            [t(c) for c in cols])
+    a = CK.join_probe_plain(keys, specs, *args, cap=len(keys[0]),
+                            want="anti")
+    b = CK.join_probe_plain(folded, fspecs, *args, cap=len(keys[0]),
+                            want="anti")
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def test_join_probe_cpu_takes_plain_version():
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; a tensor on another non-CUDA device is refused."""
+    before = dict(CK.LAUNCHES)
+    keys, specs, slots, rcap, count, mask, cols = _probe_inputs(
+        "int32", 2, 4, True, 5)
+    t = torch.from_numpy
+    args = ([t(k) for k in keys], specs, t(slots), rcap, torch.tensor(count),
+            t(mask), [t(c) for c in cols])
+    got = CK.join_probe(*args, cap=len(keys[0]), want="semi")
+    want = CK.join_probe_plain(*args, cap=len(keys[0]), want="semi")
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
+    assert CK.LAUNCHES == before
+    with pytest.raises(ValueError):
+        CK.join_probe([k.to("meta") for k in args[0]], specs,
+                      args[2].to("meta"), rcap, args[4].to("meta"),
+                      args[5].to("meta"), [], cap=len(keys[0]),
+                      want="semi")

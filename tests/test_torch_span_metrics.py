@@ -35,7 +35,9 @@ READERS = {
 }
 #: reader -> the counters whose window deltas it divides
 RATIOS = {"dict_device_share.session": ("dict_device_values",
-                                        "dict_values")}
+                                        "dict_values"),
+          "join_kernel_share": ("join_probe_kernel", "join_probes"),
+          "join_kernel_share.session": ("join_probe_kernel", "join_probes")}
 #: reader of the load's counters -> the counters it sums and the scale
 SETUP = {"append_s": (("append_ns", "load_dict_ns"), 1e-9),
          "upload_s": (("upload_ns",), 1e-9)}
@@ -118,7 +120,8 @@ def test_every_reader_is_in_the_benchmark():
 
 @pytest.mark.parametrize("name", sorted(RATIOS))
 def test_ratio_reader_divides_its_counters(window, name):
-    """On the CPU every map stays on the host: the share reads 0."""
+    """On the CPU every map stays on the host and every dense join probe
+    takes the plain version: the share reads 0."""
     part, whole = RATIOS[name]
     _cell, _answers, counters = window
     read = harness.load_module("metrics", name).read
