@@ -310,13 +310,17 @@ def test_a_failing_section_returns_1(capsys, monkeypatch):
 
 
 def test_a_failing_query_returns_1(capsys, monkeypatch):
+    """Q6 fails and the query after it still runs (two queries of
+    ``ORDER``: the full list is test_main_prints_the_reference_line's)."""
     monkeypatch.setitem(B.QUERIES, 6, "select nothing from nowhere")
+    monkeypatch.setattr(B, "ORDER", (6, 14))
     monkeypatch.delenv("MTPU_BENCH_BUDGET_S", raising=False)
     rc, lines = _main(capsys)
     assert rc == 1
     d = lines[-1]["detail"]
     assert list(d["engine_sf1_failed"]) == ["q6"]
-    assert len(d["engine_sf1_wall_ms"]) == 21 and d["sections_failed"] is None
+    assert list(d["engine_sf1_wall_ms"]) == ["q14"] and \
+        d["sections_failed"] is None
 
 
 def test_baseline_helpers_equal_the_reference():

@@ -1,89 +1,29 @@
 """The PyTorch port's Engine (monetdb_tpu_torch, device="cpu") against the
 reference JAX Engine (monetdb_tpu) on the same generated data.
 
-TPC-H Q1-Q6, Q10, Q18, Q19 and Q20 at SF0.01 and SF0.1 (SF0.1's lineitem
-capacity 2^20 is above the 2^17 compaction threshold, so it reaches
-``r_compact`` and the count-then-retry loop, whose shrunk buckets re-lower
-Q3's and Q20's group-by to the sort strategy), synthetic joins on both
-strategies with unique and duplicate build keys, LIMIT, LIKE, arithmetic
-errors, and grouped aggregates; the other twelve queries are in
-test_torch_engine_cd.py.  Strings, decimals, integers and counts must be
-equal; floats
-(avg) may differ by rel 1e-12: both sides divide an exact integer sum by a
-power of ten and the count, but torch's CPU kernel divides by a scalar as
-a multiply by its reciprocal, so the last bit can differ.
+Synthetic joins on both strategies with unique and duplicate build keys,
+LIMIT, LIKE, arithmetic errors, and grouped aggregates; the TPC-H queries
+are in test_torch_tpch_paths.py.  Strings, decimals, integers and counts
+must be equal; floats (avg) may differ by rel 1e-12 (tests/torch_parity.py).
 """
 
 import os
 
 os.environ.setdefault("MTPU_TORCH_EXPAND_MEMO", "0")
 
-import math  # noqa: E402
-
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 import monetdb_tpu as R  # noqa: E402
-from monetdb_tpu.bench.tpch_load import load_tpch as ref_load_tpch  # noqa: E402
 from monetdb_tpu.engine import Engine as RefEngine  # noqa: E402
 from monetdb_tpu.ops.calc import CalcError as RefCalcError  # noqa: E402
 import monetdb_tpu_torch as T  # noqa: E402
-from monetdb_tpu_torch.bench.tpch_load import load_tpch  # noqa: E402
-from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
 from monetdb_tpu_torch.engine import Engine  # noqa: E402
 from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 from monetdb_tpu_torch.ops import calc as TC  # noqa: E402
 
 from test_torch_cuda import dict_codes, torch_catalog  # noqa: E402
-
-_FLOAT_RTOL = 1e-12
-
-
-def _assert_rows_equal(got, want):
-    assert len(got) == len(want)
-    for grow, wrow in zip(got, want):
-        assert len(grow) == len(wrow)
-        for g, w in zip(grow, wrow):
-            if isinstance(w, float):
-                assert isinstance(g, float)
-                assert math.isclose(g, w, rel_tol=_FLOAT_RTOL) or \
-                    (math.isnan(g) and math.isnan(w)), (grow, wrow)
-            else:
-                assert type(g) is type(w) and g == w, (grow, wrow)
-
-
-@pytest.fixture(scope="module", params=[0.01, 0.1], ids=["sf0.01", "sf0.1"])
-def engines(request):
-    sf = request.param
-    return (sf, Engine(load_tpch(sf, device="cpu")),
-            RefEngine(ref_load_tpch(sf)))
-
-
-@pytest.mark.parametrize("q", [1, 2, 3, 4, 5, 6, 10, 18, 19, 20])
-def test_tpch_matches_reference(engines, q):
-    sf, eng, ref = engines
-    stats0 = dict(TF.STATS)
-    got = eng.query(QUERIES[q])
-    want = ref.query(QUERIES[q])
-    assert got.names == want.names
-    assert list(map(repr, got.types)) == list(map(repr, want.types))
-    _assert_rows_equal(list(got.rows), list(want.rows))
-    if sf == 0.1 and q in (1, 6):
-        frag = eng._cached_plan(QUERIES[q]).fragment
-        if q == 1:
-            # 2^19-row compaction bucket < ~590k live rows: overflow,
-            # re-lowered with the measured total
-            assert TF.STATS["cap_retries"] > stats0["cap_retries"]
-        else:
-            # a few thousand live rows: compacted, then shrunk to their
-            # bucket
-            assert "'compact'" in repr(frag.rel_ir)
-            assert max(frag.expand.values()) < (1 << 19)
-    # a warm run reuses the cached plan and gives the same rows
-    warm = eng.query(QUERIES[q], trace=True)
-    _assert_rows_equal(list(warm.rows), list(want.rows))
-    run = [e for e in warm.trace if e["op"] == "fragment.run"]
-    assert run and run[0]["device"] == "cpu" and run[0]["rpcs"] >= 1
+from torch_parity import FRAGMENT_RTOL, assert_rows_close  # noqa: E402
 
 
 def _tables(rows_a, rows_b, k):
@@ -137,7 +77,8 @@ def test_arith_without_error_matches_reference():
                        [0, 1, 2, 3, 4])
     sql = ("select a + b, a - b, a * b, a / b, a % b from t "
            "order by k")
-    _assert_rows_equal(list(eng.query(sql).rows), list(ref.query(sql).rows))
+    assert_rows_close(list(eng.query(sql).rows), list(ref.query(sql).rows),
+                      FRAGMENT_RTOL)
 
 
 @pytest.mark.parametrize("sql", [
@@ -159,7 +100,8 @@ def test_dense_groupby_matches_reference(sql):
     b = rng.integers(-(2 ** 40), 2 ** 40, n)
     k = rng.integers(0, 9, n)
     eng, ref = _tables(a, b, k)
-    _assert_rows_equal(list(eng.query(sql).rows), list(ref.query(sql).rows))
+    assert_rows_close(list(eng.query(sql).rows), list(ref.query(sql).rows),
+                      FRAGMENT_RTOL)
 
 
 def test_unported_plan_raises_unsupported():
@@ -177,17 +119,18 @@ def test_unported_plan_raises_unsupported():
     with pytest.raises(TF.Unsupported, match="WinRef"):
         TF.CompiledFragment(eng.catalog, rel, [c.name for c in out_cols])
     falls0 = TF.STATS["fallbacks"]
-    _assert_rows_equal(list(eng.query(cast).rows),
-                       list(ref.query(cast).rows))
+    assert_rows_close(list(eng.query(cast).rows),
+                      list(ref.query(cast).rows), FRAGMENT_RTOL)
     assert TF.STATS["fallbacks"] == falls0
-    _assert_rows_equal(list(eng.query(window).rows),
-                       list(ref.query(window).rows))
+    assert_rows_close(list(eng.query(window).rows),
+                      list(ref.query(window).rows), FRAGMENT_RTOL)
     assert TF.STATS["fallbacks"] == falls0 + 1
     systab = "select name from sys.tables"
-    _assert_rows_equal(list(eng.query(systab).rows),
-                       list(ref.query(systab).rows))
+    assert_rows_close(list(eng.query(systab).rows),
+                      list(ref.query(systab).rows), FRAGMENT_RTOL)
     geom = "select st_area(s) from t"
-    _assert_rows_equal(list(eng.query(geom).rows), list(ref.query(geom).rows))
+    assert_rows_close(list(eng.query(geom).rows),
+                      list(ref.query(geom).rows), FRAGMENT_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +225,7 @@ def test_join_matches_reference(strategy, span, kind):
     assert node[1] == kind and node[5] == strategy
     assert node[7], "uniqueness check expected"
     assert got.names == want.names
-    _assert_rows_equal(list(got.rows), list(want.rows))
+    assert_rows_close(list(got.rows), list(want.rows), FRAGMENT_RTOL)
     n = len(got.rows)
     assert 0 < n <= 1500 and (kind == "left") == (n == 1500)
     if kind == "left":
@@ -308,8 +251,9 @@ def test_join_duplicate_build_raises_unsupported(strategy, span, kind):
     assert not _join_nodes(frag.rel_ir, []) and \
         "'join_expand'" in repr(frag.rel_ir)
     assert got.names == want.names
-    _assert_rows_equal(list(got.rows), list(want.rows))
-    _assert_rows_equal(list(eng.query(sql).rows), list(want.rows))
+    assert_rows_close(list(got.rows), list(want.rows), FRAGMENT_RTOL)
+    assert_rows_close(list(eng.query(sql).rows), list(want.rows),
+                      FRAGMENT_RTOL)
     if kind == "left":              # no residual to drop a match
         ids = [r[0] for r in got.rows]
         assert len(ids) > len(set(ids)), "a probe row matched twice"
@@ -338,7 +282,7 @@ def test_like_matches_reference(where):
     eng, ref = _catalogs(_strings_table())
     sql = f"select id, s from t where {where} order by id"
     got, want = list(eng.query(sql).rows), list(ref.query(sql).rows)
-    _assert_rows_equal(got, want)
+    assert_rows_close(got, want, FRAGMENT_RTOL)
     assert all(r[1] is not None for r in got)
 
 
@@ -368,7 +312,8 @@ def test_limit_offset_matches_reference(sql):
     rng = np.random.default_rng(8)
     eng, ref = _tables(rng.permutation(40), rng.integers(0, 9, 40),
                        rng.integers(0, 9, 40))
-    _assert_rows_equal(list(eng.query(sql).rows), list(ref.query(sql).rows))
+    assert_rows_close(list(eng.query(sql).rows), list(ref.query(sql).rows),
+                      FRAGMENT_RTOL)
 
 
 def test_wide_sum_narrowing_overflow_matches_reference():
@@ -384,10 +329,11 @@ def test_wide_sum_narrowing_overflow_matches_reference():
     assert str(got.value) == str(want.value)
     assert "overflow in sum aggregate" in str(got.value)
     ok = "select k, sum(a) + 1 from t where k = 1 group by k"
-    _assert_rows_equal(list(eng.query(ok).rows), list(ref.query(ok).rows))
+    assert_rows_close(list(eng.query(ok).rows), list(ref.query(ok).rows),
+                      FRAGMENT_RTOL)
     whole = "select k, sum(a) as s from t group by k order by s desc"
     got = list(eng.query(whole).rows)
-    _assert_rows_equal(got, list(ref.query(whole).rows))
+    assert_rows_close(got, list(ref.query(whole).rows), FRAGMENT_RTOL)
     assert got[0] == (0, 3 * _BIG)
 
 
@@ -423,4 +369,4 @@ def test_scatter_and_sort_groupby_match_reference(sql):
         "u": (u, "I64", {})}})
     got, want = eng.query(sql), ref.query(sql)
     assert got.names == want.names
-    _assert_rows_equal(list(got.rows), list(want.rows))
+    assert_rows_close(list(got.rows), list(want.rows), FRAGMENT_RTOL)

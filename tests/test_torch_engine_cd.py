@@ -1,15 +1,14 @@
 """Slices C and D of the PyTorch port (monetdb_tpu_torch, device="cpu")
 against the reference JAX Engine (monetdb_tpu) on the same data.
 
-TPC-H Q7, Q8, Q9, Q11-Q17, Q21 and Q22 at SF0.01, and Q9, Q13, Q16 and Q21
-at SF0.1 (capacity retries, shrunk buckets, an expanding join over a
-compacted input), each cold and warm; and synthetic tables for what those
-queries lean on: CASE with errors in taken and untaken branches, date
-extraction before 1970, float arithmetic, distinct and moment aggregates,
-NOT / IS NULL / IN, scalar subqueries that come back empty or nil,
-expanding joins of every kind, and the rest of the single-device IR
-(DISTINCT, casts, COALESCE, NULLIF, math).  Everything must be equal but
-floats, which get rel 1e-12 (see test_torch_engine.py).
+Synthetic tables for what TPC-H Q7, Q8, Q9, Q11-Q17, Q21 and Q22 lean on
+(the queries themselves are in test_torch_tpch_paths.py): CASE with errors
+in taken and untaken branches, date extraction before 1970, float
+arithmetic, distinct and moment aggregates, NOT / IS NULL / IN, scalar
+subqueries that come back empty or nil, expanding joins of every kind, and
+the rest of the single-device IR (DISTINCT, casts, COALESCE, NULLIF, math).
+Everything must be equal but floats, which get rel 1e-12
+(tests/torch_parity.py); each statement runs cold and warm.
 """
 
 import os
@@ -20,20 +19,17 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
-from monetdb_tpu.bench.tpch_load import load_tpch as ref_load_tpch  # noqa: E402
-from monetdb_tpu.engine import Engine as RefEngine  # noqa: E402
 from monetdb_tpu.ops.calc import CalcError as RefCalcError  # noqa: E402
-from monetdb_tpu_torch.bench.tpch_load import load_tpch  # noqa: E402
-from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
 import monetdb_tpu.sql.binder as ref_binder  # noqa: E402
-from monetdb_tpu_torch.engine import Engine  # noqa: E402
 from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 import monetdb_tpu_torch.sql.binder as binder  # noqa: E402
 
 from test_torch_cuda import (  # noqa: E402
     AGG_SQL, CASE_SQL, ERROR_SQL, EXPR_SQL, JOIN_EXPAND_SQL, SUBQUERY_SQL,
     agg_table, dup_tables, expr_table)
-from test_torch_engine import _assert_rows_equal, _catalogs  # noqa: E402
+from test_torch_engine import _catalogs  # noqa: E402
+from torch_parity import (  # noqa: E402
+    FRAGMENT_RTOL, assert_rows_close, assert_same_result)
 
 
 @pytest.fixture(autouse=True)
@@ -46,8 +42,6 @@ def _same_generated_names():
 
 _NIL32 = int(np.iinfo(np.int32).min)
 _NIL64 = int(np.iinfo(np.int64).min)
-
-_NEW_QUERIES = [7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 21, 22]
 
 
 def _ir_nodes(ir, out=None):
@@ -68,10 +62,9 @@ def _plan_nodes(eng, sql):
 def _assert_same_result(eng, ref, sql):
     """Names, types and rows of both engines, on a cold and a warm run."""
     got, want = eng.query(sql), ref.query(sql)
-    assert got.names == want.names
-    assert list(map(repr, got.types)) == list(map(repr, want.types))
-    _assert_rows_equal(list(got.rows), list(want.rows))
-    _assert_rows_equal(list(eng.query(sql).rows), list(want.rows))
+    assert_same_result(got, want, FRAGMENT_RTOL)
+    assert_rows_close(list(eng.query(sql).rows), list(want.rows),
+                      FRAGMENT_RTOL)
     return list(got.rows)
 
 
@@ -82,37 +75,6 @@ def _assert_same_error(eng, ref, sql, err):
         eng.query(sql)
     assert type(got.value).__name__ == type(want.value).__name__
     assert str(got.value) == str(want.value)
-
-
-@pytest.fixture(scope="module")
-def engines():
-    made = {}
-
-    def get(sf):
-        if sf not in made:
-            made[sf] = (Engine(load_tpch(sf, device="cpu")),
-                        RefEngine(ref_load_tpch(sf)))
-        return made[sf]
-    return get
-
-
-@pytest.mark.parametrize("sf,q", [(0.01, q) for q in _NEW_QUERIES]
-                         + [(0.1, q) for q in (9, 13, 16, 21)])
-def test_tpch_cd_matches_reference(engines, sf, q):
-    eng, ref = engines(sf)
-    stats0 = dict(TF.STATS)
-    rows = _assert_same_result(eng, ref, QUERIES[q])
-    assert rows
-    nodes = _plan_nodes(eng, QUERIES[q])
-    if q in (13, 21):
-        # the build side has duplicate keys: found on the device, then
-        # re-lowered as an expanding join
-        assert TF.STATS["uniq_retries"] > stats0["uniq_retries"]
-        assert "join_expand" in nodes
-    if q == 16:
-        assert "count_distinct" in nodes
-    if q in (7, 8, 9):
-        assert "dextract" in nodes
 
 
 # ---------------------------------------------------------------------------

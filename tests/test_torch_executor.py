@@ -2,8 +2,6 @@
 exec/executor.py, device="cpu") and its place in the Engine, against the
 reference JAX package on the same generated data.
 
-* all 22 TPC-H queries at SF0.01 with ``fragment_exec`` off on both sides,
-  and against the port's own fragment;
 * the 15 TPC-DS and 13 SSBM queries through both Engines with the default
   config: Q53, Q89 and Q98 (window functions) fall back to the executor on
   both sides, and ``STATS["fallbacks"]`` moves by the same amount;
@@ -14,22 +12,20 @@ reference JAX package on the same generated data.
 * ``trace=True`` gives per-operator events and the fallback reason;
 * what is not ported yet raises with the missing module's name.
 
+The 22 TPC-H queries through the executor are in test_torch_tpch_paths.py.
 Names, types, integers, decimals, dates, strings and counts must be equal.
-Floats get rel 1e-9: averages divide by a scalar on both sides but torch
-multiplies by the reciprocal, and var/stdev/corr sum squares by
-``index_add_``, whose order is not XLA's.
+Floats get rel 1e-9 (tests/torch_parity.py): averages divide by a scalar on
+both sides but torch multiplies by the reciprocal, and var/stdev/corr sum
+squares by ``index_add_``, whose order is not XLA's.
 """
 
 import os
 
 os.environ.setdefault("MTPU_TORCH_EXPAND_MEMO", "0")
 
-import math  # noqa: E402
-
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-import monetdb_tpu.config as ref_config  # noqa: E402
 import monetdb_tpu.sql.binder as ref_binder  # noqa: E402
 from monetdb_tpu.bench import ssbm as ref_ssbm  # noqa: E402
 from monetdb_tpu.bench import tpcds as ref_tpcds  # noqa: E402
@@ -48,22 +44,8 @@ from monetdb_tpu_torch.exec.executor import Executor  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
     DATE_SQL, EXECUTOR_SQL, JOIN_EXPAND_SQL, dup_tables, exec_tables)
 from test_torch_engine import _catalogs  # noqa: E402
-
-FLOAT_RTOL = 1e-9
-
-
-def assert_rows_close(got, want, rtol=FLOAT_RTOL):
-    assert len(got) == len(want), (len(got), len(want))
-    for grow, wrow in zip(got, want):
-        assert len(grow) == len(wrow)
-        for g, w in zip(grow, wrow):
-            if isinstance(w, float):
-                assert isinstance(g, float), (grow, wrow)
-                assert (math.isnan(g) and math.isnan(w)) or \
-                    math.isclose(g, w, rel_tol=rtol, abs_tol=1e-300), \
-                    (grow, wrow)
-            else:
-                assert type(g) is type(w) and g == w, (grow, wrow)
+from torch_parity import (  # noqa: E402,F401  (executor_only: a fixture)
+    EXECUTOR_ATOL, EXECUTOR_RTOL, assert_same_result, executor_only)
 
 
 def query_both(eng, ref, sql):
@@ -76,42 +58,14 @@ def query_both(eng, ref, sql):
 
 def assert_same(eng, ref, sql):
     got, want = query_both(eng, ref, sql)
-    assert got.names == want.names
-    assert list(map(repr, got.types)) == list(map(repr, want.types))
-    assert_rows_close(list(got.rows), list(want.rows))
+    assert_same_result(got, want, EXECUTOR_RTOL, EXECUTOR_ATOL)
     return got
-
-
-@pytest.fixture
-def executor_only():
-    """``fragment_exec`` off in both packages for one test."""
-    config.set("fragment_exec", False)
-    ref_config.set("fragment_exec", False)
-    yield
-    config.reset("fragment_exec")
-    ref_config.reset("fragment_exec")
 
 
 @pytest.fixture(scope="module")
 def tpch():
     return (Engine(load_tpch(0.01, device="cpu")),
             RefEngine(ref_load_tpch(0.01)))
-
-
-@pytest.mark.parametrize("q", sorted(QUERIES))
-def test_tpch_executor_matches_reference_and_fragment(tpch, executor_only,
-                                                      q):
-    eng, ref = tpch
-    runs0, falls0 = TF.STATS["runs"], TF.STATS["fallbacks"]
-    got = assert_same(eng, ref, QUERIES[q])
-    # the executor answered: no fragment ran, and a forced executor run is
-    # no fallback
-    assert TF.STATS["runs"] == runs0 and TF.STATS["fallbacks"] == falls0
-    config.reset("fragment_exec")
-    frag = eng.query(QUERIES[q])
-    assert TF.STATS["runs"] > runs0
-    assert frag.names == got.names
-    assert_rows_close(list(got.rows), list(frag.rows))
 
 
 @pytest.fixture(scope="module")

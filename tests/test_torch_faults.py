@@ -7,7 +7,7 @@ package, each held by a test that fails on the port before its repair:
 2. ``exec.fragment.STATS["runs"]`` counts one run per query: the fragments
    that plan-time scalar subqueries run on count under ``subquery_runs``
    (over the 22 TPC-H queries ``runs`` rose by 28 on the port, by 22 in the
-   reference);
+   reference; held in test_torch_tpch_paths.py);
 3. ``config`` and ``sys.env`` carry the reference's keys, ``pallas_groupby``
    (the TPU gate the port leaves out) excepted, with the reference's
    defaults, ``spmd_auto_mesh`` excepted: off in the port (on four H100s
@@ -30,7 +30,6 @@ from monetdb_tpu_torch import config  # noqa: E402
 from monetdb_tpu_torch.bench.tpch_load import load_tpch  # noqa: E402
 from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
 from monetdb_tpu_torch.engine import Engine, plan_cache_clear  # noqa: E402
-from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 from monetdb_tpu_torch.obs import PROFILER  # noqa: E402
 from monetdb_tpu_torch.session import Session  # noqa: E402
 from monetdb_tpu_torch.storage import Database  # noqa: E402
@@ -100,21 +99,6 @@ def test_fragment_run_sets_the_profiler_algorithm():
     finally:
         PROFILER.enabled = False
         PROFILER.events.clear()
-
-
-def test_runs_count_one_per_query_over_22_tpch():
-    """22 queries, 22 runs, as the reference's own test of the same queries
-    asserts (tests/test_fragment.py::test_all_22_tpch_fused); the port's
-    plan-time subquery fragments (Q2, Q11, Q15, Q17, Q20, Q22 bake scalar
-    subqueries) count apart.  Both packages side by side, one query at a
-    time through their servers: test_torch_server.py's wire parity."""
-    plan_cache_clear()                  # every query lowered in this test
-    eng = Engine(load_tpch(0.01, device="cpu"))
-    runs, subs = TF.STATS["runs"], TF.STATS["subquery_runs"]
-    for q in range(1, 23):
-        eng.query(QUERIES[q])
-    assert TF.STATS["runs"] - runs == 22
-    assert TF.STATS["subquery_runs"] - subs > 0
 
 
 #: the port's deliberate divergences from the reference's config: a key

@@ -11,9 +11,9 @@
   procedure and trigger, Python UDFs, COPY (native and Python readers,
   BINARY, INTO a file), system tables, a query timeout;
 * dump/restore, the prepared-statement API, the embedded and DB-API
-  connections;
-* TPC-H Q1, Q3, Q6, Q13 and Q18 through ``Session.sql`` over
-  ``load_tpch_db(0.01)``.
+  connections.
+
+TPC-H through ``Session.sql`` is in test_torch_tpch_paths.py.
 
 Outcomes must be equal: names, types, rows, affected-row counts and the
 class of an exception.  Integers, decimals, strings and dates exactly;
@@ -34,19 +34,13 @@ import monetdb_tpu.config as ref_config  # noqa: E402
 import monetdb_tpu.sql.binder as ref_binder  # noqa: E402
 from monetdb_tpu import dbapi as ref_dbapi  # noqa: E402
 from monetdb_tpu import embedded as ref_embedded  # noqa: E402
-from monetdb_tpu.bench.tpch_gen import gen_tpch  # noqa: E402
-from monetdb_tpu.bench.tpch_load import load_tpch_db as ref_load_db  # noqa: E402
 from monetdb_tpu.dump import dump_sql as ref_dump, restore_sql as ref_restore  # noqa: E402
 from monetdb_tpu.session import Session as RefSession  # noqa: E402
 from monetdb_tpu.sql.parser import parse as ref_parse  # noqa: E402
 from monetdb_tpu.storage import Database as RefDatabase  # noqa: E402
 import monetdb_tpu_torch.sql.binder as binder  # noqa: E402
 from monetdb_tpu_torch import dbapi, embedded  # noqa: E402
-from monetdb_tpu_torch.bench.tpch_load import load_tpch_db  # noqa: E402
-from monetdb_tpu_torch.bench.tpch_queries import QUERIES  # noqa: E402
 from monetdb_tpu_torch.dump import dump_sql, restore_sql  # noqa: E402
-from monetdb_tpu_torch.engine import plan_cache_stats  # noqa: E402
-from monetdb_tpu_torch.exec import fragment as TF  # noqa: E402
 from monetdb_tpu_torch.session import Session  # noqa: E402
 from monetdb_tpu_torch.sql.parser import parse  # noqa: E402
 from monetdb_tpu_torch.storage import Database  # noqa: E402
@@ -243,22 +237,3 @@ def test_network_connections_name_the_missing_module():
         con.close()
     finally:
         srv.stop()
-
-
-@pytest.fixture(scope="module")
-def tpch_dbs():
-    data = gen_tpch(0.01)
-    return (Session(load_tpch_db(0.01, data, device="cpu")),
-            RefSession(ref_load_db(0.01, data)))
-
-
-@pytest.mark.parametrize("q", [1, 3, 6, 13, 18])
-def test_tpch_through_session(q, tpch_dbs):
-    port, ref = tpch_dbs
-    falls = TF.STATS["fallbacks"]
-    got = [outcome(port.sql(QUERIES[q])) for _ in range(2)]
-    want = outcome(ref.sql(QUERIES[q]))
-    assert got[1] == got[0]
-    assert_outcomes_equal([got[0]], [want])
-    assert TF.STATS["fallbacks"] == falls
-    assert plan_cache_stats()["entries"] >= 1

@@ -26,10 +26,10 @@ from monetdb_tpu_torch.ops import window as TW
 
 from test_torch_engine import _catalogs
 from test_torch_ops import arr_eq, both, both_str, col_eq
-from test_torch_executor import assert_rows_close
 from test_window_frames import CASES as FRAME_CASES, ROWS, frame_sql, oracle
 from test_torch_cuda import MORE_WINDOW_SQL as MORE_SQL
 from test_window_sql import CASES as SQL_CASES
+from torch_parity import EXECUTOR_ATOL, EXECUTOR_RTOL, assert_same_result
 
 CPU = torch.device("cpu")
 NIL64 = np.iinfo(np.int64).min
@@ -228,9 +228,7 @@ def _same(eng, ref, sql):
     f0 = TF.STATS["fallbacks"]
     got, want = eng.query(sql), ref.query(sql)
     assert TF.STATS["fallbacks"] == f0 + 1      # window -> executor
-    assert got.names == want.names
-    assert list(map(repr, got.types)) == list(map(repr, want.types))
-    assert_rows_close(list(got.rows), list(want.rows))
+    assert_same_result(got, want, EXECUTOR_RTOL, EXECUTOR_ATOL)
     return list(got.rows)
 
 
