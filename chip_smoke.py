@@ -31,6 +31,15 @@ Phases, one or more output lines each, and a line with each phase's time:
              chain and one library call (``torch.index_select`` of the
              slot table by the prepared keys), the bound (bytes read and
              written once over 3.35 TB/s) and the launches.
+   kernel compact_rows - compact_rows at the shape of SSB SF20's
+             compaction barrier under a group-by: 2^27 slots, 119,994,746
+             rows counted, a mask with ~3 % and then ~40 % of them live,
+             six carried columns of 1-8 bytes, out_cap the live count's
+             power-of-two bucket, against compact_rows_plain bit for bit;
+             median CUDA-event times of the kernel and the plain chain,
+             the bound (the mask up to the count, the 32-byte sectors of
+             each column that hold a live row, and the outputs, once over
+             3.35 TB/s) and the launches.
 4. load    - TPC-H SF1 generated and loaded onto the card (``load_tpch``);
              the numpy oracle (monetdb_tpu_torch/bench/tpch_oracle.py)
              computes every query's expected rows from the same data.
@@ -610,6 +619,82 @@ def phase_kernel_join_probe(dev) -> dict:
          f"GB/s), plain {plain_ms:.4f} ms, library index_select "
          f"{lib_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
          f"({entry['bound_by']}); launches {launches} a call")
+    return entry
+
+
+#: compact_rows' phase: the live shares of a selective and a broad
+#: filter over SSB SF20's lineorder, and the carried columns' dtypes
+COMPACT_LIVE = (0.03, 0.4)
+COMPACT_COLS = (torch.int32, torch.int32, torch.int64, torch.int16,
+                torch.int8, torch.float64)
+
+
+def _bits(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _live_sectors(live, width: int) -> int:
+    """32-byte sectors of a column of ``width`` bytes that hold a live
+    row (the row count is a multiple of 32)."""
+    return int(live.view(-1, 32 // width).any(1).sum())
+
+
+def phase_kernel_compact_rows(dev) -> dict:
+    """compact_rows vs compact_rows_plain on the card at flights' shape, at
+    each live share of COMPACT_LIVE; returns its JSON entry (the first
+    share's times, the others under ``by_live``)."""
+    g = torch.Generator(device=dev).manual_seed(1618)
+    n = JOIN_PROBE_ROWS
+    entry = {"name": "compact_rows", "route": "cuda",
+             "source": "monetdb_tpu_torch/csrc/compact_rows.cu",
+             "replaces": "none (exec/fragment.py _Interp.r_compact)",
+             "by_live": {}}
+    count = torch.tensor(JOIN_PROBE_COUNT, device=dev)
+    cols = [torch.randint(-100, 100, (n,), generator=g, device=dev,
+                          dtype=dt) for dt in COMPACT_COLS]
+    for share in COMPACT_LIVE:
+        mask = torch.rand(n, generator=g, device=dev) < share
+        live = mask.clone()
+        live[JOIN_PROBE_COUNT:] = False
+        nlive = int(live.sum())
+        out_cap = 1 << max(nlive - 1, 1).bit_length()
+        args = (count, mask, cols)
+        _zero_launches()
+        got = CK.compact_rows(*args, cap=n, out_cap=out_cap)
+        want = CK.compact_rows_plain(*args, cap=n, out_cap=out_cap)
+        torch.cuda.synchronize()
+        launches = CK.LAUNCHES["compact_rows"]
+        if launches != 1:
+            raise AssertionError(f"compact_rows launches {CK.LAUNCHES}")
+        if int(got[0]) != nlive or int(want[0]) != nlive:
+            raise AssertionError(f"compact_rows nlive {int(got[0])}, plain "
+                                 f"{int(want[0])}, expected {nlive}")
+        # by the bits: the float column's nils are NaN
+        equal_or_raise("compact_rows", [_bits(c) for c in got[1]],
+                       [_bits(c) for c in want[1]], f"n={n} live={share}")
+        del got, want
+        ms = time_cuda(lambda: CK.compact_rows(*args, cap=n,
+                                               out_cap=out_cap))
+        plain_ms = time_cuda(lambda: CK.compact_rows_plain(
+            *args, cap=n, out_cap=out_cap), reps=5, warmup=1)
+        # bytes: the mask below the count, each column's sectors that hold
+        # a live row, every output row written once
+        need = JOIN_PROBE_COUNT + sum(
+            32 * _live_sectors(live, c.element_size()) +
+            out_cap * c.element_size() for c in cols)
+        row = dict(ms=ms, plain_ms=plain_ms, launches=launches, live=nlive,
+                   out_cap=out_cap, **bound(need, 0))
+        entry["by_live"][str(share)] = row
+        if share == COMPACT_LIVE[0]:
+            entry.update(max_abs_err=0, **row)
+        _log(f"kernel: compact_rows n={n} count={JOIN_PROBE_COUNT} live "
+             f"{nlive} ({share:.0%} of the mask) out_cap={out_cap} "
+             f"{len(cols)} columns equal; kernel {ms:.4f} ms "
+             f"({need / (ms * 1e-3) / 1e9:.0f} GB/s of needed bytes), "
+             f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+             f"({row['bound_by']}); launches {launches} a call")
+        del mask, live
     return entry
 
 
@@ -1891,7 +1976,7 @@ PROCS_WARM = 2
 #: launches q1_grouped_sums once; no other kernel runs there
 PROCS_LAUNCHES = {"seg_sum64": 6, "q1_grouped_sums": 1,
                   "grouped_sum_limbs": 0, "like_match": 0, "substr_keys": 0,
-                  "join_probe": 0}
+                  "join_probe": 0, "compact_rows": 0}
 
 
 def phase_procs(dev, seg: dict, q1: dict, gsl: dict) -> None:
@@ -2990,6 +3075,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     probe = _timed("kernel join_probe", phase_kernel_join_probe, dev)
     torch.cuda.empty_cache()
+    compact = _timed("kernel compact_rows", phase_kernel_compact_rows, dev)
+    torch.cuda.empty_cache()
     cat, resident, want, data = _timed("load", phase_load, dev)
     dicts = _timed("kernel dict", phase_kernel_dict, dev, cat)
     _timed("fused", phase_fused, cat, want[1], q1, gsl)
@@ -3028,7 +3115,7 @@ def main(argv) -> int:
     _timed("external", phase_external, dev)
     _log(f"chip_smoke: all phases passed in "
          f"{time.perf_counter() - t_start:.1f} s")
-    _log(json.dumps({"kernels": [seg, q1, gsl, probe] + dicts}))
+    _log(json.dumps({"kernels": [seg, q1, gsl, probe, compact] + dicts}))
     _log(json.dumps({"ok": True, "device": device}))
     return 0
 

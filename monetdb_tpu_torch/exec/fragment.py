@@ -72,7 +72,7 @@ from ..ops._tensor import (catalog_device, gather_nil as _gather_nil,
                            nilm as _nilm_arr, npdt as _npdt,
                            set_drop as _set_drop, tdt as _tdt)
 from ..obs.profiler import PROFILER
-from ..ops.cuda_kernels import join_probe, seg_sum64
+from ..ops.cuda_kernels import compact_rows, join_probe, seg_sum64
 from ..ops.dictmap import like_mask, substr_remap
 from ..ops.sort import sort_key
 from ..ops.strfuncs import like_lut
@@ -1955,12 +1955,10 @@ class _Interp:
         for data, not padding (gdk_select.c virtualize role)."""
         _, cir, out_cap, ordinal = ir
         env, count, mask, cap = self.rel(cir)
-        live = self.live_of(cap, count, mask)
-        oids, nlive, live_out = _compact_oids(live, out_cap)
+        nlive, got = _compact(count, mask, cap, out_cap, env.values())
         # overflow -> count-retry channel (rows would be dropped)
         self.exp_totals[ordinal] = nlive
-        env2 = {k: _gather_nil(v, oids, live_out) for k, v in env.items()}
-        return env2, nlive, None, out_cap
+        return dict(zip(env, got)), nlive, None, out_cap
 
     def r_filter(self, ir):
         env, count, mask, cap = self.rel(ir[1])
@@ -1999,7 +1997,7 @@ class _Interp:
             oids = torch.where(oids < count, oids, -1)
         else:
             # oids[r] = index of the (offset+r+1)-th live row via one
-            # rank-indexed scatter-set (see _compact_oids); ranks before
+            # rank-indexed scatter-set (as compact_rows_plain); ranks before
             # the offset or past out_cap land in the spare slot
             live = self.live_of(cap, count, mask)
             csum = torch.cumsum(live.to(torch.int64), 0)
@@ -2933,9 +2931,9 @@ def _root_compact(itp, rel_ir, out_keys, out_cap):
         nlive = count
         arrays = tuple(env[k][:out_cap] for k in out_keys)
     else:
-        live = itp.live_of(cap, count, mask)
-        oids, nlive, live_out = _compact_oids(live, out_cap)
-        arrays = tuple(_gather_nil(env[k], oids, live_out) for k in out_keys)
+        nlive, arrays = _compact(count, mask, cap, out_cap,
+                                 [env[k] for k in out_keys])
+        arrays = tuple(arrays)
     err, tots = itp.combined_scalars()
     return err, tots, nlive, arrays
 
@@ -2963,24 +2961,23 @@ def _run_raw(ir, inputs):
     return itp.err(), itp.exp_totals, nlive, live, arrays
 
 
-def _compact_oids(live, out_cap: int):
-    """Compaction map: oids[r] = index of the (r+1)-th live row, -1 past
-    the live count (the virtualize role, gdk/gdk_select.c:30).  One
-    rank-indexed scatter-set; ranks past out_cap are dropped."""
-    cap = live.shape[0]
-    csum = torch.cumsum(live.to(torch.int64), 0)
-    nlive = csum[-1] if cap else \
-        torch.zeros((), dtype=torch.int64, device=live.device)
-    pos = torch.where(live, csum - 1, out_cap)
-    oids = _set_drop(out_cap, -1, pos,
-                     torch.arange(cap, dtype=torch.int64, device=live.device))
-    live_out = torch.arange(out_cap, device=live.device) < nlive
-    return oids, nlive, live_out
+def _compact(count, mask, cap: int, out_cap: int, arrays):
+    """The live rows of ``arrays`` (cap rows each; live: below ``count``,
+    None for all, and in ``mask``) to the front of out_cap rows, nil
+    behind, and the live count past out_cap too (the virtualize role,
+    gdk/gdk_select.c:30): ``compact_rows``, the CUDA kernel on a card,
+    its plain version on the CPU."""
+    stats_inc("compactions")
+    nlive, got = compact_rows(
+        count, None if mask is None else mask.contiguous(), list(arrays),
+        cap=cap, out_cap=out_cap)
+    if nlive.is_cuda:
+        stats_inc("compact_kernel")
+    return nlive, got
 
 
 def _finish_mask(live, arrays, *, out_cap: int):
-    oids, _nlive, live_out = _compact_oids(live, out_cap)
-    return tuple(_gather_nil(a, oids, live_out) for a in arrays)
+    return tuple(_compact(None, live, live.shape[0], out_cap, arrays)[1])
 
 
 def _finish_slice(arrays, *, out_cap: int):
@@ -3401,7 +3398,11 @@ STATS = {"runs": 0, "subquery_runs": 0, "uniq_retries": 0, "cap_retries": 0,
          "upload_ns": 0, "upload_bytes": 0, "upload_copy_ns": 0,
          # dense join probes run (_Interp.r_join), and those of them that
          # went through the join_probe CUDA kernel
-         "join_probes": 0, "join_probe_kernel": 0}
+         "join_probes": 0, "join_probe_kernel": 0,
+         # compaction barriers run (_Interp.r_compact, a masked result's
+         # compaction), and those of them that went through the
+         # compact_rows CUDA kernel
+         "compactions": 0, "compact_kernel": 0}
 
 
 def stats_inc(key: str, n: int = 1) -> None:

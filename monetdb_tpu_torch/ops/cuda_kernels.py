@@ -15,7 +15,7 @@ few atomics per block); the sources under csrc/ say what each design does
 about that.  The TPU kernels split values into 16-bit limbs because Mosaic
 has no 64-bit integers; Hopper has, so these add whole 64-bit values.
 
-Three more replace no TPU kernel.  Two compute the lowering's maps over a
+Four more replace no TPU kernel.  Two compute the lowering's maps over a
 string dictionary on the card (ops/dictmap.py), over its UTF-8 byte heap
 (column.StrHeap: ``data`` uint8, ``offsets`` int32):
 
@@ -24,12 +24,15 @@ string dictionary on the card (ops/dictmap.py), over its UTF-8 byte heap
 * ``substr_keys`` - each value's substring / left / right as a sortable
   64-bit key of its bytes.
 
-The third is the probe side of the fragment interpreter's dense equi-join
-(exec/fragment.py ``_Interp.r_join``), which XLA fuses for the reference:
+Two run relational nodes of the fragment interpreter (exec/fragment.py),
+whose chains XLA fuses for the reference:
 
-* ``join_probe`` - liveness, key checks, the packed key's slot lookup, the
-  output mask and the carried build columns in one pass over the probe
-  rows.
+* ``join_probe`` - the dense equi-join's probe side (``_Interp.r_join``):
+  liveness, key checks, the packed key's slot lookup, the output mask and
+  the carried build columns in one pass over the probe rows;
+* ``compact_rows`` - the compaction barrier (``_Interp.r_compact``, the
+  masked result's compaction): each column's live rows to the front of a
+  smaller capacity, nils behind, and the live count, in four launches.
 
 Each kernel has:
   * a wrapper that launches it for CUDA tensors, after checking dtype,
@@ -60,15 +63,16 @@ import threading
 import numpy as np
 import torch
 
-from ._tensor import gather_nil, nil_const, nilm, npdt
+from ._tensor import gather_nil, nil_const, nilm, npdt, set_drop
 
 __all__ = ["seg_sum64", "seg_sum64_plain", "q1_grouped_sums",
            "q1_grouped_sums_plain", "grouped_sum_limbs",
            "grouped_sum_limbs_plain", "like_match", "like_match_plain",
            "substr_keys", "substr_keys_plain", "join_probe",
-           "join_probe_plain", "build", "LAUNCHES", "MAX_DOMAIN",
-           "SEG_SUM_BLOCK", "LIKE_MAX_OPS", "LIKE_ONE", "LIKE_ANY",
-           "JOIN_MAX_KEYS", "JOIN_MAX_COLS"]
+           "join_probe_plain", "compact_rows", "compact_rows_plain", "build",
+           "LAUNCHES", "MAX_DOMAIN", "SEG_SUM_BLOCK", "LIKE_MAX_OPS",
+           "LIKE_ONE", "LIKE_ANY", "JOIN_MAX_KEYS", "JOIN_MAX_COLS",
+           "COMPACT_MAX_COLS"]
 
 #: largest group domain the kernels take (the fragment's one-hot bound,
 #: exec/fragment.py _ONEHOT_MAX)
@@ -82,7 +86,8 @@ SEG_SUM_BLOCK = 16384
 
 #: kernel launches so far, by kernel name (see module docstring)
 LAUNCHES = {"seg_sum64": 0, "q1_grouped_sums": 0, "grouped_sum_limbs": 0,
-            "like_match": 0, "substr_keys": 0, "join_probe": 0}
+            "like_match": 0, "substr_keys": 0, "join_probe": 0,
+            "compact_rows": 0}
 
 #: longest LIKE program like_match takes (csrc/like_match.cu kMaxOps)
 LIKE_MAX_OPS = 1024
@@ -92,6 +97,10 @@ LIKE_MAX_OPS = 1024
 #: first, more columns take further launches over the same rows
 JOIN_MAX_KEYS = 4
 JOIN_MAX_COLS = 8
+
+#: columns one compact_rows call moves (csrc/compact_rows.cu kMaxCols);
+#: more take further calls over the same row indices
+COMPACT_MAX_COLS = 8
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -115,6 +124,7 @@ _SIGNATURES = {
     "like_match_launch": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P],
     "substr_keys_launch": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     "join_probe_launch": [_P, _I, _I, _P],
+    "compact_rows_launch": [_P, _P],
 }
 
 _fns = None
@@ -717,3 +727,132 @@ def join_probe(keys, specs, slots, rcap: int, count, mask, cols, *,
             _launched("join_probe", fn(ctypes.addressof(args), blocks,
                                        _THREADS, stream))
     return out, got
+
+
+# ---------------------------------------------------------------------------
+# compact_rows: the compaction barrier
+# ---------------------------------------------------------------------------
+
+#: rows a tile of csrc/compact_rows.cu (kTile): one int64 of scratch each
+_COMPACT_TILE = 8192
+
+
+class _CompactCol(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("stride", ctypes.c_longlong),
+                ("nil_bits", ctypes.c_ulonglong), ("width", ctypes.c_int),
+                ("unused", ctypes.c_int)]
+
+
+class _CompactArgs(ctypes.Structure):
+    """csrc/compact_rows.cu ``Args``, field for field."""
+    _fields_ = [("cols", _CompactCol * COMPACT_MAX_COLS),
+                ("count", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("tiles", ctypes.c_void_p), ("oids", ctypes.c_void_p),
+                ("nlive", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("out_cap", ctypes.c_longlong),
+                ("ncols", ctypes.c_int), ("scan", ctypes.c_int)]
+
+
+def compact_rows_plain(count, mask, cols, *, cap: int, out_cap: int):
+    """Plain compact_rows: the interpreter's torch chain (live rows, their
+    int64 ranks by cumsum, one rank-indexed scatter-set of the row ids,
+    ranks past out_cap dropped, then ``gather_nil`` per column)."""
+    dev = (mask if mask is not None else count if count is not None
+           else cols[0]).device
+    live = torch.ones(cap, dtype=torch.bool, device=dev) if count is None \
+        else torch.arange(cap, device=dev) < count
+    if mask is not None:
+        live = live & mask
+    if not cap:                 # no row to gather from: nils alone
+        return torch.zeros((), dtype=torch.int64, device=dev), [
+            torch.full((out_cap,), nil_const(c.dtype), dtype=c.dtype,
+                       device=dev) for c in cols]
+    csum = torch.cumsum(live.to(torch.int64), 0)
+    nlive = csum[-1]
+    pos = torch.where(live, csum - 1, out_cap)
+    oids = set_drop(out_cap, -1, pos,
+                    torch.arange(cap, dtype=torch.int64, device=dev))
+    live_out = torch.arange(out_cap, device=dev) < nlive
+    return nlive, [gather_nil(c, oids, live_out) for c in cols]
+
+
+def _check_compact(count, mask, cols, cap: int, out_cap: int):
+    """Types and shapes, on every device: a 0-d int64 count or None, a
+    contiguous bool mask of cap rows or None, 1-D columns of cap rows of a
+    dtype that has a nil."""
+    if cap < 0 or out_cap < 0:
+        raise ValueError(f"compact_rows: cap {cap}, out_cap {out_cap}")
+    if count is not None and (count.dim() != 0 or
+                              count.dtype != torch.int64):
+        raise ValueError(f"compact_rows: count must be a 0-d torch.int64, "
+                         f"not {count.dtype} {tuple(count.shape)}")
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            raise TypeError(f"compact_rows: mask must be torch.bool, not "
+                            f"{mask.dtype}")
+        if mask.dim() != 1 or mask.shape[0] != cap or \
+                not mask.is_contiguous():
+            raise ValueError(f"compact_rows: mask {tuple(mask.shape)} must "
+                             f"be contiguous 1-D of {cap} rows")
+    for j, c in enumerate(cols):
+        if c.dtype not in _NIL_BITS:
+            raise TypeError(f"compact_rows: cols[{j}] of {c.dtype}")
+        if c.dim() != 1 or c.shape[0] != cap:
+            raise ValueError(f"compact_rows: cols[{j}] "
+                             f"{tuple(c.shape)} must be 1-D of {cap} rows")
+
+
+def compact_rows(count, mask, cols, *, cap: int, out_cap: int):
+    """The compaction barrier over ``cap`` rows.
+
+    A row ``i`` is live when ``i < count`` (a 0-d int64; None: every row)
+    and ``mask[i]`` (bool, or None).  Returns ``(nlive, columns)``:
+    ``nlive``, a 0-d int64, counts every live row, those ranked at or past
+    ``out_cap`` too; ``columns[j]`` has ``out_cap`` rows, row ``r`` the
+    value of ``cols[j]``'s (r+1)-th live row, bit for bit, and the dtype's
+    nil from ``nlive`` on.  A column may be a view with any stride (an
+    expanded scalar: stride 0).  On CPU tensors this is
+    ``compact_rows_plain``; on CUDA tensors the kernel
+    (csrc/compact_rows.cu), one call a group of COMPACT_MAX_COLS columns
+    (at least one), over at most 2^31 - 1 rows."""
+    _check_compact(count, mask, cols, cap, out_cap)
+    given = [t for t in (count, mask) if t is not None] + list(cols)
+    if not given:
+        raise ValueError("compact_rows: no count, mask or column")
+    if _on_cpu(*given):
+        return compact_rows_plain(count, mask, cols, cap=cap,
+                                  out_cap=out_cap)
+    dev = given[0].device
+    for t in given:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"compact_rows: a tensor on {t.device}, "
+                             f"another on {dev}; all must be on one CUDA "
+                             f"device")
+    if cap > _I32_MAX:
+        raise ValueError(f"compact_rows: cap {cap} past int32 row indices")
+    nlive = torch.empty((), dtype=torch.int64, device=dev)
+    got = [torch.empty(out_cap, dtype=c.dtype, device=dev) for c in cols]
+    tiles = torch.empty(max(-(-cap // _COMPACT_TILE), 1),
+                        dtype=torch.int64, device=dev)
+    oids = torch.empty(out_cap if cols else 0, dtype=torch.int32,
+                       device=dev)
+    args = _CompactArgs(
+        count=None if count is None else count.data_ptr(),
+        mask=None if mask is None else mask.data_ptr(),
+        tiles=tiles.data_ptr(), oids=oids.data_ptr(),
+        nlive=nlive.data_ptr(), n=cap, out_cap=out_cap)
+    fn = build()["compact_rows_launch"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the first call ranks the rows and writes nlive; the others reuse them
+    for start in range(0, max(len(cols), 1), COMPACT_MAX_COLS):
+        part = list(zip(cols, got))[start:start + COMPACT_MAX_COLS]
+        args.scan = int(start == 0)
+        args.ncols = len(part)
+        for j, (src, dst) in enumerate(part):
+            args.cols[j] = _CompactCol(src.data_ptr(), dst.data_ptr(),
+                                       src.stride(0), _NIL_BITS[src.dtype],
+                                       src.element_size(), 0)
+        with torch.cuda.device(dev):
+            _launched("compact_rows", fn(ctypes.addressof(args), stream))
+    return nlive, got

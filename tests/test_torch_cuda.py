@@ -275,6 +275,134 @@ def test_join_probe_launches_once_a_dense_probe(cuda_device):
         assert got == list(cpu.query(sql).rows), qid
 
 
+_COMPACT_COLS = [torch.bool, torch.int8, torch.int16, torch.int32,
+                 torch.int64, torch.float32, torch.float64]
+
+
+def _compact_inputs(dev, n, count, share, ncols, seed):
+    """``ncols`` columns of n rows (none, or at least 2): a strided view,
+    an expanded scalar, and the others cycling through every dtype, NaN
+    and the integer minimum among their values; the count (None: every
+    row) and the mask's live share (None: no mask)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cols = []
+    for j in range(max(ncols - 2, 0)):
+        dt = _COMPACT_COLS[j % len(_COMPACT_COLS)]
+        if dt == torch.bool:
+            c = torch.rand(n, generator=g, device=dev) < 0.5
+        elif dt.is_floating_point:
+            c = torch.randn(n, generator=g, device=dev, dtype=dt)
+            c[torch.rand(n, generator=g, device=dev) < 0.1] = float("nan")
+        else:
+            c = torch.randint(-100, 100, (n,), generator=g, device=dev,
+                              dtype=dt)
+            c[torch.rand(n, generator=g, device=dev) < 0.1] = \
+                torch.iinfo(dt).min
+        cols.append(c)
+    if ncols:
+        cols.append(torch.randint(0, 9, (2 * n,), generator=g,
+                                  device=dev)[::2])
+        cols.append(torch.tensor(7, dtype=torch.int32,
+                                 device=dev).expand(n))
+    count = None if count is None else torch.tensor(int(count * n),
+                                                    device=dev)
+    mask = None if share is None else \
+        torch.rand(n, generator=g, device=dev) < share
+    return count, mask, cols
+
+
+#: (n, count share or None, mask live share or None, out_cap)
+_COMPACT_SHAPES = [
+    (0, 1.0, 0.5, 16), (1, None, 1.0, 4), (4099, 0.5, 0.6, 4096),
+    (8269, 0.9, None, 8192), (8269, 1.0, 0.0, 1024),
+    (4099, None, 1.0, 8192), (777, 0.9, 0.5, 2048),
+    (100_003, 0.8, 0.7, 1000), ((1 << 24) - 5, 0.95, 0.03, 1 << 19),
+    ((1 << 24) - 5, 0.95, 0.4, 1 << 19), (1 << 24, None, 0.02, 1 << 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,count,share,out_cap", _COMPACT_SHAPES)
+@pytest.mark.parametrize("ncols", [0, 9, 21])
+def test_compact_rows_kernel_vs_plain(cuda_device, n, count, share,
+                                      out_cap, ncols):
+    """The kernel equals compact_rows_plain bit for bit: nlive (every
+    live row, those past out_cap too) and each column (NaN nils by their
+    bits), no mask or no count, none or all rows live, caps that are no
+    multiple of the 8192-row tile, ranks past out_cap; 9 columns take two
+    calls, 21 three, none still one (it counts the live rows)."""
+    count, mask, cols = _compact_inputs(cuda_device, n, count, share, ncols,
+                                        n + ncols)
+    before = CK.LAUNCHES["compact_rows"]
+    got_n, got = CK.compact_rows(count, mask, cols, cap=n, out_cap=out_cap)
+    want_n, want = CK.compact_rows_plain(count, mask, cols, cap=n,
+                                         out_cap=out_cap)
+    torch.cuda.synchronize()
+    assert CK.LAUNCHES["compact_rows"] == \
+        before + max(1, -(-len(cols) // CK.COMPACT_MAX_COLS))
+    assert got_n.dtype == torch.int64 and int(got_n) == int(want_n)
+    assert len(got) == len(cols)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == (out_cap,)
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_compact_rows_kernel_rejects_bad_input(cuda_device):
+    count, mask, cols = _compact_inputs(cuda_device, 64, 0.9, 0.5, 8, 5)
+
+    def compact(count=count, mask=mask, cols=cols, cap=64):
+        return CK.compact_rows(count, mask, cols, cap=cap, out_cap=32)
+    compact()
+    with pytest.raises(TypeError):
+        compact(cols=[cols[0], cols[1].to(torch.uint8)])
+    with pytest.raises(TypeError):
+        compact(cols=[cols[5].half()])
+    with pytest.raises(TypeError):
+        compact(mask=mask.to(torch.uint8))
+    with pytest.raises(ValueError):
+        compact(mask=torch.ones(128, dtype=torch.bool,
+                                device=cuda_device)[::2])
+    with pytest.raises(ValueError):
+        compact(count=count.to(torch.int32))
+    with pytest.raises(ValueError):
+        compact(count=count.cpu())              # another device
+    with pytest.raises(ValueError):
+        compact(cols=[cols[0], cols[1].cpu()])
+    with pytest.raises(ValueError):
+        compact(cols=[cols[0][:-1]])            # another length
+    with pytest.raises(ValueError):
+        compact(cols=[cols[0].view(8, 8)], cap=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [20, 900])
+def test_compact_rows_launches_once_a_compaction(cuda_device, cut,
+                                                 monkeypatch):
+    """Every compaction of a filtered group-by over more than 2^19 rows
+    (its barrier, and the overflow's retry) goes through the kernel, one
+    call each, and the answer equals the same catalog's on the CPU."""
+    from monetdb_tpu_torch.engine import Engine
+    from monetdb_tpu_torch.exec.fragment import STATS
+    monkeypatch.setenv("MTPU_TORCH_EXPAND_MEMO", "0")
+    rng = np.random.default_rng(cut)
+    n = (1 << 19) + 75_000
+    cols = {"k": (rng.integers(0, 50, n).astype(np.int32), "I32", {}),
+            "v": (rng.integers(0, 1000, n).astype(np.int32), "I32", {}),
+            "w": (rng.integers(-10**9, 10**9, n), "I64", {})}
+    sql = (f"select k, count(*), sum(w), min(v) from t where v < {cut} "
+           f"group by k order by k")
+    gpu = Engine(torch_catalog({"t": cols}, cuda_device))
+    cpu = Engine(torch_catalog({"t": cols}, "cpu"))
+    launches, runs = CK.LAUNCHES["compact_rows"], STATS["compactions"]
+    kernel = STATS["compact_kernel"]
+    got = list(gpu.query(sql).rows)
+    ran = STATS["compactions"] - runs
+    assert ran > 0
+    assert CK.LAUNCHES["compact_rows"] - launches == ran
+    assert STATS["compact_kernel"] - kernel == ran
+    assert got == list(cpu.query(sql).rows)
+
+
 @pytest.fixture(scope="module")
 def engines_by_sf():
     """sf -> (generated data, engine on the card, engine on the CPU)."""
@@ -1352,7 +1480,8 @@ def test_hybrid_mesh_on_one_card(cuda_device):
     assert res["ranks"] == 2 and res["local"] == 2 and not res["differ"]
     assert res["launches_per_rank"] == [
         {"seg_sum64": 12, "q1_grouped_sums": 2, "grouped_sum_limbs": 0,
-         "like_match": 0, "substr_keys": 0, "join_probe": 0}] * 2
+         "like_match": 0, "substr_keys": 0, "join_probe": 0,
+         "compact_rows": 0}] * 2
 
 
 @pytest.mark.cuda
@@ -1395,7 +1524,7 @@ def test_bench_loops_on_gpu_match_numpy(cuda_device):
         assert launched == {"seg_sum64": 10 if loop is B.seg_loop else 0,
                             "q1_grouped_sums": 0, "grouped_sum_limbs": 0,
                             "like_match": 0, "substr_keys": 0,
-                            "join_probe": 0}
+                            "join_probe": 0, "compact_rows": 0}
     got = B.groupby_sums(*args[:2], 3, nseg)
     assert np.array_equal(got.cpu().numpy(),
                           B.groupby_numpy(sid, vals, 3, nseg))

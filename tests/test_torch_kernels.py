@@ -452,3 +452,159 @@ def test_join_probe_cpu_takes_plain_version():
                       args[2].to("meta"), rcap, args[4].to("meta"),
                       args[5].to("meta"), [], cap=len(keys[0]),
                       want="semi")
+
+
+# ---------------------------------------------------------------------------
+# compact_rows: the compaction barrier
+# ---------------------------------------------------------------------------
+
+_COMPACT_DTYPES = [np.bool_, np.int8, np.int16, np.int32, np.int64,
+                   np.float32, np.float64]
+#: case -> (cap, count (None: every row; a float: that share of cap), the
+#: mask's live share (None: no mask), out_cap); 4099 and 8269 rows are no
+#: multiple of the kernel's 8192-row tile
+_COMPACT_CASES = {
+    "no mask": (8269, 0.9, None, 8192),
+    "count below cap": (4099, 0.5, 0.6, 4096),
+    "no count": (4099, None, 0.3, 2048),
+    "none live": (8269, 1.0, 0.0, 1024),
+    "all live": (4099, None, 1.0, 8192),
+    "overflow past out_cap": (8269, 0.8, 0.7, 1000),
+    "out_cap above cap": (777, 0.9, 0.5, 2048),
+    "empty": (0, 1.0, 0.5, 16),
+}
+
+
+def _compact_inputs(case, seed):
+    """Columns of every dtype, NaN and the integer minimum among the live
+    rows' values, a strided view and an expanded scalar among them."""
+    cap, count, share, out_cap = _COMPACT_CASES[case]
+    rng = np.random.default_rng(seed)
+    cols = []
+    for dt in _COMPACT_DTYPES:
+        if dt == np.bool_:
+            c = rng.random(cap) < 0.5
+        elif np.issubdtype(dt, np.floating):
+            c = rng.standard_normal(cap).astype(dt)
+            c[rng.random(cap) < 0.1] = np.nan
+        else:
+            c = rng.integers(-100, 100, cap).astype(dt)
+            c[rng.random(cap) < 0.1] = np.iinfo(dt).min
+        cols.append(torch.from_numpy(c))
+    cols.append(torch.from_numpy(rng.integers(0, 9, 2 * cap))[::2])
+    cols.append(torch.tensor(7, dtype=torch.int32).expand(cap))
+    count = None if count is None else torch.tensor(int(count * cap))
+    mask = None if share is None else torch.from_numpy(
+        rng.random(cap) < share)
+    return count, mask, cols, cap, out_cap
+
+
+def _compact_oracle(count, mask, cols, cap, out_cap):
+    live = np.arange(cap) < (cap if count is None else int(count))
+    if mask is not None:
+        live &= mask.numpy()
+    rows = np.flatnonzero(live)[:out_cap]
+    out = []
+    for c in cols:
+        c = c.numpy()
+        nil = False if c.dtype == np.bool_ else np.nan \
+            if np.issubdtype(c.dtype, np.floating) else np.iinfo(c.dtype).min
+        o = np.full(out_cap, nil, c.dtype)
+        o[:len(rows)] = c[rows]
+        out.append(o)
+    return int(live.sum()), out
+
+
+@pytest.mark.parametrize("case", sorted(_COMPACT_CASES))
+def test_compact_rows_plain_vs_numpy(case):
+    """compact_rows_plain (the torch chain the kernel replaces) against
+    numpy, bit for bit: every column dtype, nils inside the live rows, no
+    mask or no count, none and all rows live, ranks past out_cap dropped
+    while nlive still counts them, ragged caps."""
+    count, mask, cols, cap, out_cap = _compact_inputs(case, len(case))
+    nlive, got = CK.compact_rows_plain(count, mask, cols, cap=cap,
+                                       out_cap=out_cap)
+    want_n, want = _compact_oracle(count, mask, cols, cap, out_cap)
+    assert nlive.dtype == torch.int64 and nlive.dim() == 0
+    assert int(nlive) == want_n
+    if case == "overflow past out_cap":
+        assert want_n > out_cap
+    assert len(got) == len(cols)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+def test_compact_rows_cpu_takes_plain_version():
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; bad types and shapes are refused on every device, and a
+    tensor on another non-CUDA device is refused."""
+    before = dict(CK.LAUNCHES)
+    count, mask, cols, cap, out_cap = _compact_inputs("count below cap", 3)
+    got = CK.compact_rows(count, mask, cols, cap=cap, out_cap=out_cap)
+    want = CK.compact_rows_plain(count, mask, cols, cap=cap,
+                                 out_cap=out_cap)
+    assert torch.equal(got[0], want[0])
+    assert all(_same_bits(g, w.numpy()) for g, w in zip(got[1], want[1]))
+    assert CK.LAUNCHES == before
+
+    def call(count=count, mask=mask, cols=cols, cap=cap):
+        return CK.compact_rows(count, mask, cols, cap=cap, out_cap=out_cap)
+    with pytest.raises(TypeError):
+        call(cols=[cols[0].to(torch.uint8)])
+    with pytest.raises(TypeError):
+        call(mask=mask.to(torch.int8))
+    with pytest.raises(ValueError):
+        call(count=count.to(torch.int32))
+    with pytest.raises(ValueError):
+        call(cols=[cols[3][:-1]])               # another length
+    with pytest.raises(ValueError):
+        call(mask=torch.ones(2 * cap, dtype=torch.bool)[::2])
+    with pytest.raises(ValueError):
+        call(count=count.to("meta"), mask=mask.to("meta"),
+             cols=[c.to("meta") for c in cols[:2]])
+
+
+#: rows of the engine test's table: above 2^19, so that the lowering puts
+#: a compaction under the group-by (capacity 2^20, first bucket 2^19)
+_COMPACT_ENGINE_ROWS = (1 << 19) + 75_000
+
+
+@pytest.mark.parametrize("cut", [20, 900])
+def test_engine_compacts_under_the_group_by(cut, monkeypatch):
+    """A filtered group-by over more than 2^19 rows is lowered with a
+    compaction barrier; its answer equals numpy's, whether the live rows
+    fit the first 2^19-row bucket (cut 20: ~2 %) or overflow it into the
+    count-retry channel (cut 900: ~90 %), and every compaction is
+    counted.  No capacity memo: the first lowering takes the first
+    bucket."""
+    monkeypatch.setenv("MTPU_TORCH_EXPAND_MEMO", "0")
+    from monetdb_tpu_torch.engine import Engine
+    from monetdb_tpu_torch.exec import fragment as TF
+    import monetdb_tpu_torch as T
+    rng = np.random.default_rng(cut)
+    n = _COMPACT_ENGINE_ROWS
+    k = rng.integers(0, 50, n).astype(np.int32)
+    v = rng.integers(0, 1000, n).astype(np.int32)
+    w = rng.integers(-10**9, 10**9, n).astype(np.int64)
+    cat = T.Catalog()
+    cat.add(T.Table.from_dict("t", {
+        "k": T.Column.from_numpy(k, T.dtypes.I32, device="cpu"),
+        "v": T.Column.from_numpy(v, T.dtypes.I32, device="cpu"),
+        "w": T.Column.from_numpy(w, T.dtypes.I64, device="cpu")}))
+    sql = (f"select k, count(*), sum(w), min(v) from t where v < {cut} "
+           f"group by k order by k")
+    stats0 = dict(TF.STATS)
+    eng = Engine(cat)
+    rows = list(eng.query(sql).rows)
+    lowered = repr(eng._cached_plan(sql).fragment.rel_ir)
+    m = v < cut
+    want = [(g, int((k[m] == g).sum()), int(w[m][k[m] == g].sum()),
+             int(v[m][k[m] == g].min())) for g in np.unique(k[m])]
+    assert rows == want
+    assert TF.STATS["compactions"] > stats0["compactions"]
+    assert TF.STATS["compact_kernel"] == stats0["compact_kernel"]
+    if cut == 900:
+        # overflowed, re-lowered at the measured count: no barrier left
+        assert TF.STATS["cap_retries"] > stats0["cap_retries"]
+        assert "'compact'" not in lowered
+    else:
+        assert "'compact'" in lowered

@@ -37,7 +37,9 @@ READERS = {
 RATIOS = {"dict_device_share.session": ("dict_device_values",
                                         "dict_values"),
           "join_kernel_share": ("join_probe_kernel", "join_probes"),
-          "join_kernel_share.session": ("join_probe_kernel", "join_probes")}
+          "join_kernel_share.session": ("join_probe_kernel", "join_probes"),
+          "compact_kernel_share": ("compact_kernel", "compactions"),
+          "compact_kernel_share.session": ("compact_kernel", "compactions")}
 #: reader of the load's counters -> the counters it sums and the scale
 SETUP = {"append_s": (("append_ns", "load_dict_ns"), 1e-9),
          "upload_s": (("upload_ns",), 1e-9)}
@@ -118,10 +120,17 @@ def test_every_reader_is_in_the_benchmark():
         {*READERS, *RATIOS, *load}
 
 
-@pytest.mark.parametrize("name", sorted(RATIOS))
+#: the ratio readers whose counters the tiny window moves: its tables
+#: lie below the compaction barrier's threshold and no result of it
+#: carries a mask, so it runs no compaction
+WINDOW_RATIOS = sorted(n for n in RATIOS
+                       if not n.startswith("compact_kernel_share"))
+
+
+@pytest.mark.parametrize("name", WINDOW_RATIOS)
 def test_ratio_reader_divides_its_counters(window, name):
     """On the CPU every map stays on the host and every dense join probe
-    takes the plain version: the share reads 0."""
+    and every compaction takes the plain version: the share reads 0."""
     part, whole = RATIOS[name]
     _cell, _answers, counters = window
     read = harness.load_module("metrics", name).read
@@ -131,6 +140,27 @@ def test_ratio_reader_divides_its_counters(window, name):
     assert read(_run(window, trace=False)) is None
     assert read(_run(window, drop=(part,))) is None
     assert read(_run(window, drop=(whole,))) is None
+
+
+@pytest.mark.parametrize("name", sorted(set(RATIOS) - set(WINDOW_RATIOS)))
+def test_ratio_reader_of_counters_the_window_leaves(window, name):
+    """A ratio over counters the tiny window does not move reads None
+    there (no compaction ran), and divides its counters where they
+    moved."""
+    part, whole = RATIOS[name]
+    cell, answers, counters = window
+    read = harness.load_module("metrics", name).read
+    assert counters[f"fragment.{whole}"] == 0
+    assert read(_run(window)) is None
+    moved = {**counters, f"fragment.{part}": 3, f"fragment.{whole}": 4}
+    stub = tracing.DeviceTrace(1.0, 0.5, 1, [], [])
+    assert read(harness.Run(cell, answers, 1.0, stub, moved, {},
+                            "cpu")) == 0.75
+    assert read(harness.Run(cell, answers, 1.0, None, moved, {},
+                            "cpu")) is None
+    del moved[f"fragment.{part}"]
+    assert read(harness.Run(cell, answers, 1.0, stub, moved, {},
+                            "cpu")) is None
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
